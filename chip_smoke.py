@@ -9,7 +9,9 @@ Phases, each fatal on failure:
 
 1. build — compile ``src/repro_torch/csrc/*.cu`` with nvcc (first use).
 2. kernels — each CUDA kernel against its plain PyTorch version on the
-   card, bit for bit, across sweeps of shapes and types.
+   card, bit for bit, across sweeps of shapes and types (anchor counts G
+   up to 2^20, queries at and past the +inf tail; selector tiles and group
+   ids, runids >= R).
 3. main path — 32 in-memory partitions at the widths of
    ``src/repro/configs/remixdb.py`` (R=8 runs of 65,536 entries, D=32,
    64-bit keys, 4-word values) with overlapping runs, tombstones, TTL
@@ -18,9 +20,10 @@ Phases, each fatal on failure:
    ``ops.get`` / ``ops.scan`` on ``Partition.index()``); every answer is
    checked against an independent numpy oracle and against the port's
    plain engine (``core.query``) on the card, with one host sync per batch.
-4. timings — each kernel at the main path's shapes (CUDA events over CUDA
-   graphs of many launches) beside its bound, its plain version and a
-   PyTorch yardstick; end-to-end µs per key / per query.
+4. timings — each kernel at each of the main path's shapes (CUDA events
+   over CUDA graphs of many launches) beside its bound, its plain version,
+   a PyTorch yardstick and a launch floor (a one-element ``add_`` timed the
+   same way); end-to-end µs per key / per query and profiled batches.
 
 The last lines are one JSON object listing the kernels, the card's name
 and power limit from nvidia-smi, and ``{"ok": true, "device": ...}``.
@@ -49,8 +52,9 @@ N_PARTITIONS = 32
 DOMAIN = 1 << 18  # distinct keys per partition: each key in ~2 of the 8 runs
 GET_SMALL, GET_LARGE = 256, 1 << 16
 SCAN_Q, SCAN_WIDTH = 256, 75  # Seek+Next50: n + max(8, n // 2)
-# anchor-kernel sweep; 32768 is the main path's padded group count
-ANCHOR_GS = (1, 5, 513, 5000, 16384, 32768)
+# anchor-kernel sweep; 32768 is the main path's padded group count. Some G
+# are not multiples of the sample stride, and the largest make it double.
+ANCHOR_GS = (1, 5, 17, 513, 5000, 16384, 32768, 100_003, 262_144, 1 << 20)
 NOW = 1_700_000_000  # query-time clock (uint32 seconds)
 DEV = "cuda"
 HBM_BPS = 3.35e12  # H100 SXM device memory, bytes/s
@@ -203,54 +207,70 @@ def _anchor_queries(rng, anchors: np.ndarray, q: int) -> np.ndarray:
     out[0] = 0
     out[1] = 0xFFFFFFFF
     out[1, -1] = 0xFFFFFFFE  # the largest key that is not +inf
+    out[2] = 0xFFFFFFFF  # at the +inf tail
+    if len(real):
+        out[3] = real[-1]
+        out[3, -1] += np.uint32(1)  # past the last real anchor
     return out
 
 
 def phase_kernels(rng) -> dict:
     import torch
 
-    from repro_torch.device import as_words
+    from repro_torch.device import as_words, sm_count
     from repro_torch.kernels import anchor_search as AS
     from repro_torch.kernels import selector_decode as SD
 
     cuda = torch.device(DEV)
     err = {"anchor_search": 0, "selector_decode": 0}
     n = 0
+    # 1,000 queries take the warp-per-query search, `many` the sampled one
+    many = AS.SAMPLE_MIN_QUERIES_PER_SM * sm_count(torch.empty(0, device=cuda)) + 5
     for g in ANCHOR_GS:
         for kw in (1, 2, 3):
             a_np = _sorted_anchors(rng, g, kw)
-            q_np = _anchor_queries(rng, a_np, 1000)
-            a, q = as_words(a_np, cuda), as_words(q_np, cuda)
-            for kern, plain in ((AS.anchor_le_count, AS.anchor_le_count_plain),
-                                (AS.anchor_search, AS.anchor_search_plain)):
-                got = kern(a, q).cpu().numpy().astype(np.int64)
-                want = plain(a, q).cpu().numpy().astype(np.int64)
-                e = int(np.abs(got - want).max())
-                err["anchor_search"] = max(err["anchor_search"], e)
-                check(e == 0, f"{kern.__name__} G={g} KW={kw}: max |err| {e}")
-                n += 1
+            a = as_words(a_np, cuda)
+            for nq in (1000, many):
+                q = as_words(_anchor_queries(rng, a_np, nq), cuda)
+                for kern, plain in ((AS.anchor_le_count, AS.anchor_le_count_plain),
+                                    (AS.anchor_search, AS.anchor_search_plain)):
+                    got = kern(a, q).cpu().numpy().astype(np.int64)
+                    want = plain(a, q).cpu().numpy().astype(np.int64)
+                    e = int(np.abs(got - want).max())
+                    err["anchor_search"] = max(err["anchor_search"], e)
+                    check(e == 0, f"{kern.__name__} G={g} KW={kw} Q={nq}: max |err| {e}")
+                    n += 1
     log(f"[kernels] anchor_search/anchor_le_count: {n} cases bit-identical "
-        f"(G in {ANCHOR_GS}; KW 1-3; +inf tails)")
+        f"(G in {ANCHOR_GS}; KW 1-3; Q 1,000 and {many}; +inf tails; queries "
+        "at and past them)")
     n = 0
     for d in (8, 16, 32, 64):
-        for r in range(1, min(16, d) + 1):
+        # 700 rows: a row group per warp; 40,000: four per warp
+        cases = [(r, 700) for r in range(1, min(16, d) + 1)] + [(min(d, 8), 40_000)]
+        for r, nrows in cases:
             for dt in (np.uint8, np.int32):
-                q = 300
-                sel = rng.integers(0, r, (q, d)) | (rng.integers(0, 2, (q, d)) << 7)
-                sel[rng.random((q, d)) < 0.2] = 127
-                cur = rng.integers(0, 1 << 20, (q, r)).astype(np.int32)
+                g = 300  # groups; runids up to R+1 take no cursor and no count
+                sel = rng.integers(0, r + 2, (g, d)) | (rng.integers(0, 2, (g, d)) << 7)
+                sel[rng.random((g, d)) < 0.2] = 127
+                sel[::11] = 127  # all-pad rows
+                cur = rng.integers(0, 1 << 20, (g, r)).astype(np.int32)
+                rows = np.concatenate([rng.integers(0, g, nrows - g), np.arange(g)[::-1]])
                 s = torch.from_numpy(sel.astype(dt)).to(cuda)
                 c = torch.from_numpy(cur).to(cuda)
-                got = SD.selector_decode(s, c)
-                want = SD.selector_decode_plain(s, c)
-                for name, x, y in zip(("runid", "absidx", "newest", "pad"), got, want):
-                    e = int((x.long() - y.long()).abs().max())
-                    err["selector_decode"] = max(err["selector_decode"], e)
-                    check(e == 0, f"selector_decode D={d} R={r} {dt.__name__} "
-                                  f"{name}: max |err| {e}")
-                n += 1
+                rw = torch.from_numpy(rows.astype(np.int32)).to(cuda)
+                for contract, kw in (("tiles", {}), ("rows", {"rows": rw})):
+                    got = SD.selector_decode(s, c, **kw)
+                    want = SD.selector_decode_plain(s, c, **kw)
+                    for name, x, y in zip(("runid", "absidx", "newest", "pad"), got, want):
+                        e = int((x.long() - y.long()).abs().max())
+                        err["selector_decode"] = max(err["selector_decode"], e)
+                        check(e == 0, f"selector_decode D={d} R={r} {dt.__name__} "
+                                      f"{contract} {name}: max |err| {e}")
+                    n += 1
     log(f"[kernels] selector_decode: {n} cases bit-identical "
-        "(D 8-64; R 1..min(16,D); uint8 and int32 selectors)")
+        "(D 8-64; R 1..min(16,D); uint8 and int32 selectors; tiles and group "
+        "ids, repeated and unordered, 700 and 40,000 rows; all-pad rows; "
+        "runids >= R)")
     return err
 
 
@@ -494,7 +514,23 @@ def _metric(reg, name):
 
 
 # ---------------------------------------------------------------- phase 4
+def time_pair(fa, fb, reps: int) -> tuple[float, float]:
+    """Device ms per call of ``fa`` and of ``fb``, timed in turns a, b, b, a
+    within one run, each the mean of its two turns."""
+    a1, b1 = time_graph(fa, reps), time_graph(fb, reps)
+    b2, a2 = time_graph(fb, reps), time_graph(fa, reps)
+    return (a1 + a2) / 2, (b1 + b2) / 2
+
+
+def _pack64(w):
+    """Ordered int64 of two uint32 words, for torch.searchsorted."""
+    w = w.long() & 0xFFFFFFFF
+    return (((w[:, 0] - (1 << 31)) << 32) | w[:, 1]).contiguous()
+
+
 def phase_timings(rng, views, domains, starts, err, card) -> list[dict]:
+    """Each kernel at each of its main-path shapes, with the operands the
+    path hands it, beside a launch floor timed in the same harness."""
     import torch
 
     from repro_torch.kernels import anchor_search as AS
@@ -503,69 +539,68 @@ def phase_timings(rng, views, domains, starts, err, card) -> list[dict]:
 
     dv = views[0]
     remix = dv.remix
-    out = []
+    x = torch.zeros(1, device=DEV)
+    floor = time_graph(lambda: x.add_(1))
+    log(f"[timing] {card}: launch floor (one-element add_): {floor * 1e3:.3f} us")
 
-    # anchor_search at a get batch: (G, 2) anchors, 256 queries
+    # anchor_search at the two get batches: (G, 2) anchors, 256 / 65,536 queries
     anchors = remix.anchors
     g = anchors.shape[0]
-    q = torch.from_numpy(_pack(probe(rng, domains[0], GET_SMALL))).to("cuda")
-    got, want = AS.anchor_search(anchors, q), AS.anchor_search_plain(anchors, q)
-    e = int((got - want).abs().max())
-    check(e == 0, "anchor_search differs from its plain version at main shapes")
-    ms = time_graph(lambda: AS.anchor_search(anchors, q))
-    plain = time_graph(lambda: AS.anchor_search_plain(anchors, q), reps=10)
+    a64 = _pack64(anchors)
+    anchor = []
+    for qn, reps in ((GET_SMALL, 50), (GET_LARGE, 20)):
+        q = torch.from_numpy(_pack(probe(rng, domains[0], qn))).to(DEV)
+        got = AS.anchor_search(anchors, q)
+        check(torch.equal(got, AS.anchor_search_plain(anchors, q)),
+              f"anchor_search differs from its plain version at Q={qn}")
+        q64 = _pack64(q)
+        check(torch.equal(torch.clamp(torch.searchsorted(a64, q64, right=True) - 1, min=0)
+                          .to(torch.int32), got), "searchsorted yardstick disagrees")
+        ms, lib = time_pair(lambda: AS.anchor_search(anchors, q),
+                            lambda: torch.searchsorted(a64, q64, right=True), reps)
+        plain = time_graph(lambda: AS.anchor_search_plain(anchors, q), reps=5)
+        rows, probes = search_probes(a64, q64)
+        b, by = bound_ms(rows * KW * 4 + qn * (KW * 4 + 4), probes * KW * 2)
+        anchor.append(dict(shape=f"G={g} KW={KW} Q={qn}", ms=ms, plain_ms=plain,
+                           bound_ms=b, bound_by=by, library_ms=lib))
+        log(f"[timing] anchor_search at Q={qn}: a binary search reads {rows} of "
+            f"{g} anchor rows ({probes} probes); sample plan "
+            f"(stride, rows, bytes) = {AS._plan(g, KW)}")
 
-    def pack64(w):  # ordered int64 of two uint32 words, for searchsorted
-        w = w.long() & 0xFFFFFFFF
-        return ((w[:, 0] - (1 << 31)) << 32) | w[:, 1]
+    # selector_decode at the scan window (256 starts x 4 groups) and at the
+    # 65,536-key get window (65,536 x 2 groups): group ids as ops hands them
+    sel_table = remix.selectors.reshape(remix.g, D)
+    cur = remix.cursors
+    st = torch.from_numpy(_pack(starts[0])).to(DEV)
+    gq = torch.from_numpy(_pack(probe(rng, domains[0], GET_LARGE))).to(DEV)
+    windows = (("scan window", ops.seek(remix, dv.runset, st), SCAN_WIDTH, 50),
+               (f"{GET_LARGE:,}-key get window", ops.seek(remix, dv.runset, gq), 1, 20))
+    decode, e = [], 0
+    for label, pos, width, reps in windows:
+        rows, _ = ops.window_operands(remix, pos, width)
+        got = SD.selector_decode(sel_table, cur, rows=rows)
+        want = SD.selector_decode_plain(sel_table, cur, rows=rows)
+        e = max(e, *(int((a.long() - b.long()).abs().max()) for a, b in zip(got, want)))
+        check(e == 0, f"selector_decode differs from its plain version at the {label}")
+        ms = time_graph(lambda: SD.selector_decode(sel_table, cur, rows=rows), reps)
+        plain = time_graph(lambda: SD.selector_decode_plain(sel_table, cur, rows=rows),
+                           reps=5)
+        n = rows.shape[0]
+        # row ids, gathered selectors and cursors in; runid, absidx, newest, pad out.
+        # Operations: 8 integer ops per slot (decode 3, count 2, cursor 1, flags 2).
+        b, by = bound_ms(n * 4 + n * D + n * remix.r * 4 + n * D * 10, n * D * 8)
+        decode.append(dict(shape=f"{label}: N={n} D={D} R={remix.r}", ms=ms,
+                           plain_ms=plain, bound_ms=b, bound_by=by, library_ms=None))
 
-    a64, q64 = pack64(anchors).contiguous(), pack64(q).contiguous()
-    check(torch.equal(torch.clamp(torch.searchsorted(a64, q64, right=True) - 1, min=0)
-                      .to(torch.int32), got), "searchsorted yardstick disagrees")
-    lib = time_graph(lambda: torch.searchsorted(a64, q64, right=True))
-    rows, probes = search_probes(a64, q64)
-    nbytes = rows * KW * 4 + GET_SMALL * KW * 4 + GET_SMALL * 4
-    b, by = bound_ms(nbytes, probes * KW * 2)
-    out.append(dict(name="anchor_search", shape=f"G={g} KW={KW} Q={GET_SMALL}",
-                    ms=ms, plain_ms=plain, bound_ms=b, bound_by=by, library_ms=lib,
-                    max_abs_err=max(err["anchor_search"], e)))
-    log(f"[timing] anchor_search at Q={GET_SMALL}: the search reads {rows} of "
-        f"{g} anchor rows ({probes} probes)")
-    q_l = torch.from_numpy(_pack(probe(rng, domains[0], GET_LARGE))).to("cuda")
-    ms_l = time_graph(lambda: AS.anchor_search(anchors, q_l), reps=20)
-    a64l = pack64(q_l).contiguous()
-    lib_l = time_graph(lambda: torch.searchsorted(a64, a64l, right=True), reps=20)
-    rows_l, probes_l = search_probes(a64, a64l)
-    b_l, by_l = bound_ms(rows_l * KW * 4 + GET_LARGE * (KW * 4 + 4), probes_l * KW * 2)
-    log(f"[timing] {card}: anchor_search at Q={GET_LARGE}: {ms_l * 1e3:.3f} us "
-        f"(searchsorted {lib_l * 1e3:.3f} us), bound {b_l * 1e3:.4f} us ({by_l}; "
-        f"reads {rows_l} of {g} anchor rows, {probes_l} probes)")
-
-    # selector_decode at a scan window: 256 starts x ng=4 groups of D=32,
-    # the operands exactly as the scan path hands them to the kernel
-    st = torch.from_numpy(_pack(starts[0])).to("cuda")
-    pos = ops.seek(remix, dv.runset, st)
-    sels, curs, _ = ops.window_operands(remix, pos, SCAN_WIDTH)
-    got = SD.selector_decode(sels, curs)
-    want = SD.selector_decode_plain(sels, curs)
-    e = max(int((x.long() - y.long()).abs().max()) for x, y in zip(got, want))
-    check(e == 0, "selector_decode differs from its plain version at main shapes")
-    ms = time_graph(lambda: SD.selector_decode(sels, curs))
-    plain = time_graph(lambda: SD.selector_decode_plain(sels, curs), reps=10)
-    rows = sels.shape[0]
-    counted = (~got[3]).long()
-    ops_n = int((counted * torch.arange(D, device="cuda")[None, :]).sum()) * 3
-    nbytes = rows * D * 1 + rows * remix.r * 4 + rows * D * (4 + 4 + 1 + 1)
-    b, by = bound_ms(nbytes, ops_n)
-    out.append(dict(name="selector_decode", shape=f"Q={rows} D={D} R={remix.r}",
-                    ms=ms, plain_ms=plain, bound_ms=b, bound_by=by, library_ms=None,
-                    max_abs_err=max(err["selector_decode"], e)))
-
-    for k in out:
-        log(f"[timing] {card}: {k['name']} ({k['shape']}): kernel {k['ms'] * 1e3:.3f} us, "
-            f"plain {k['plain_ms'] * 1e3:.3f} us, bound {k['bound_ms'] * 1e3:.4f} us "
-            f"({k['bound_by']}), library "
-            + ("n/a" if k["library_ms"] is None else f"{k['library_ms'] * 1e3:.3f} us"))
+    out = []
+    for name, shapes, e_k in (("anchor_search", anchor, 0), ("selector_decode", decode, e)):
+        for k in shapes:
+            log(f"[timing] {card}: {name} ({k['shape']}): kernel {k['ms'] * 1e3:.3f} us, "
+                f"plain {k['plain_ms'] * 1e3:.3f} us, bound {k['bound_ms'] * 1e3:.4f} us "
+                f"({k['bound_by']}), launch floor {floor * 1e3:.3f} us, library "
+                + ("n/a" if k["library_ms"] is None else f"{k['library_ms'] * 1e3:.3f} us"))
+        out.append(dict(shapes[0], name=name, shapes=shapes, launch_floor_ms=floor,
+                        max_abs_err=max(err[name], e_k)))
     return out
 
 
@@ -678,12 +713,14 @@ def main() -> int:
     except Fail as e:
         print(f"chip_smoke.py: FAILED: {e}", file=sys.stderr)
         return 1
+    # top-level times: each kernel's first shape; "shapes" holds them all
     kernels = [
         dict(name=t["name"], route="cuda", source=SOURCES[t["name"]],
              replaces=REPLACES[t["name"]], launches=launches[t["name"]],
              max_abs_err=t["max_abs_err"], ms=t["ms"], plain_ms=t["plain_ms"],
              bound_ms=t["bound_ms"], bound_by=t["bound_by"],
-             library_ms=t["library_ms"])
+             library_ms=t["library_ms"], launch_floor_ms=t["launch_floor_ms"],
+             shapes=t["shapes"])
         for t in timings
     ]
     log(json.dumps({"kernels": kernels}))

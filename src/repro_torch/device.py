@@ -124,10 +124,10 @@ def _build(sources: list[Path], out: Path) -> str:
 
 _VP, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
-    # (anchors, queries, out, g, q, kw, minus_one, stream)
-    "remix_anchor_search": [_VP, _VP, _VP, _I, _I, _I, _I, _VP],
-    # (selectors, cursors, runid, absidx, newest, pad, q, d, r, sel_u8, stream)
-    "remix_selector_decode": [_VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _VP],
+    # (anchors, queries, out, g, q, kw, stride, sms, minus_one, stream)
+    "remix_anchor_search": [_VP, _VP, _VP, _I, _I, _I, _I, _I, _I, _VP],
+    # (selectors, cursors, rows, runid, absidx, newest, pad, n, d, r, sel_u8, sms, stream)
+    "remix_selector_decode": [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _VP],
 }
 
 
@@ -155,6 +155,11 @@ def check_launch(err: int, name: str) -> None:
     """Raise on a non-zero ``cudaGetLastError()`` returned by a launch."""
     if err != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with error {err}")
+
+
+def sm_count(t: torch.Tensor) -> int:
+    """Streaming multiprocessors of ``t``'s card (kernels size grids by it)."""
+    return torch.cuda.get_device_properties(t.device).multi_processor_count
 
 
 def stream_ptr(t: torch.Tensor) -> int:

@@ -4,13 +4,19 @@ Replaces the Pallas TPU kernel ``src/repro/kernels/anchor_search.py``:
 ``anchor_le_count`` (body ``_le_count_kernel``) and ``anchor_search``,
 which composed it in two levels. The TPU kernel streamed every anchor tile
 past every query tile (compare-and-count, O(G) per query, branch-free for
-the vector unit). On the H100 the search is bound by bytes and by the
-latency of dependent loads, so ``csrc/anchor_search.cu`` runs one thread per
-query doing a binary search over the (G, KW) anchor words: about log2(G)
-dependent reads per query, all L2 hits once a partition's anchors (tens to
-hundreds of KB) sit in the 50 MB L2. One kernel serves both functions:
-``anchor_le_count`` is ``upper_bound`` (the count of anchors <= query, for
-sorted anchors — the Pallas kernel's contract), ``anchor_search`` is
+the vector unit). On the H100 a search needs only a few KB of L2-resident
+anchor rows, and what bounds it is the latency of dependent loads: one
+thread's binary search waits on about log2(G) of them. So
+``csrc/anchor_search.cu`` cuts the dependent steps in one of two ways,
+by the number of queries per SM: for a few, a warp per query runs a
+32-ary search in device memory (log32(G) steps); for many, each block
+stages a sample of the anchors, every ``stride``-th row (:func:`_plan`),
+into shared memory, and a thread per query binary-searches the sample
+there and then its ``stride``-row block, one 128-byte line where the
+sample fits. The sample is built from ``anchors`` at every launch;
+nothing is kept beside the index. One kernel serves both functions:
+``anchor_le_count`` is ``upper_bound`` (the count of anchors <= query,
+for sorted anchors — the Pallas kernel's contract), ``anchor_search`` is
 ``max(upper_bound - 1, 0)``.
 
 Each wrapper launches the kernel for CUDA tensors and counts the launch in
@@ -22,7 +28,26 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core import keys as K
-from repro_torch.device import check_launch, kernel_library, stream_ptr
+from repro_torch.device import check_launch, kernel_library, sm_count, stream_ptr
+
+LINE_BYTES = 128  # one L2 line: the block a query finishes in
+# csrc/anchor_search.cu holds the same two values
+SAMPLE_BYTES_MAX = 48 * 1024  # a block's sample
+SAMPLE_MIN_QUERIES_PER_SM = 128  # from here on the kernel samples; below, a warp per query
+
+
+def _plan(g: int, kw: int) -> tuple[int, int, int]:
+    """(stride, sample_rows, smem_bytes) of the kernel's sample of G anchor
+    rows of KW words: every ``stride``-th row, ``sample_rows`` in all.
+
+    The stride starts at the rows of one line, so that a query finishes
+    inside one line, and doubles until the sample fits
+    ``SAMPLE_BYTES_MAX`` of shared memory."""
+    stride = LINE_BYTES // (4 * kw)
+    while -(-g // stride) * kw * 4 > SAMPLE_BYTES_MAX:
+        stride *= 2
+    rows = -(-g // stride)
+    return stride, rows, rows * kw * 4
 
 
 def anchor_le_count_plain(anchors: torch.Tensor, queries: torch.Tensor) -> torch.Tensor:
@@ -46,13 +71,16 @@ def _launch(anchors: torch.Tensor, queries: torch.Tensor, minus_one: bool):
     q = queries.shape[0]
     if not 1 <= kw <= 3:
         raise ValueError(f"KW={kw}: the kernel takes 1 to 3 key words")
+    if g >= 2**30:
+        raise ValueError(f"G={g}: the kernel indexes anchor rows with int32")
     out = torch.empty((q,), dtype=torch.int32, device=queries.device)
     if q == 0:
         return out
     anchors, queries = anchors.contiguous(), queries.contiguous()
+    stride, _, _ = _plan(g, kw)
     err = kernel_library().remix_anchor_search(
         anchors.data_ptr(), queries.data_ptr(), out.data_ptr(),
-        g, q, kw, int(minus_one), stream_ptr(queries),
+        g, q, kw, stride, sm_count(queries), int(minus_one), stream_ptr(queries),
     )
     check_launch(err, "anchor_search")
     return out

@@ -1,9 +1,10 @@
 """Full REMIX operations composed from the two kernels.
 
 The kernels cover the anchor search and the selector occurrence decode;
-plain torch indexing does the gathers between them, as the JAX package
-left them to XLA. Nothing here reads a value back to the host, so a batch
-on the card runs with no synchronisation until its caller fetches the
+the decode reads the group tables through group ids itself, and plain
+torch indexing does the run gathers after it, as the JAX package left
+them to XLA. Nothing here reads a value back to the host, so a batch on
+the card runs with no synchronisation until its caller fetches the
 result.
 """
 from __future__ import annotations
@@ -23,9 +24,9 @@ def seek(remix: Remix, runset: RunSet, queries: torch.Tensor) -> torch.Tensor:
     """Kernel-backed lower-bound seek; same contract as core.query.seek."""
     d = remix.d
     g = anchor_search(remix.anchors, queries)  # (Q,)
-    gl = g.long()
-    sels = remix.selectors.reshape(remix.g, d)[gl]  # (Q, D)
-    runid, absidx, newest, pad = selector_decode(sels, remix.cursors[gl])
+    runid, absidx, newest, pad = selector_decode(
+        remix.selectors.reshape(remix.g, d), remix.cursors, rows=g
+    )  # (Q, D)
     keys, _, _, _ = runset.gather(runid, absidx)
     keys = torch.where(pad[..., None], K.INF_WORD, keys)
     ge = ~K.key_lt(keys, queries[:, None, :])  # (Q, D)
@@ -34,17 +35,13 @@ def seek(remix: Remix, runset: RunSet, queries: torch.Tensor) -> torch.Tensor:
 
 
 def window_operands(remix: Remix, pos: torch.Tensor, width: int):
-    """The selector_decode operands of the ``ng`` groups covering each
-    ``width`` window: (Q*ng, D) selectors, (Q*ng, R) cursors, first group."""
+    """The ``ng`` groups covering each ``width`` window, as selector_decode
+    takes them: (Q*ng,) int32 group ids, and each window's first group."""
     d = remix.d
-    q = pos.shape[0]
     ng = (width + d - 1) // d + 1
     g0 = torch.clamp(pos // d, 0, remix.g - 1)
     gs = g0[:, None] + torch.arange(ng, dtype=torch.int32, device=pos.device)[None, :]
-    gsc = gs.clamp(0, remix.g - 1).long()
-    sels = remix.selectors.reshape(remix.g, d)[gsc].reshape(q * ng, d)
-    curs = remix.cursors[gsc].reshape(q * ng, remix.r)
-    return sels, curs, g0
+    return gs.clamp(0, remix.g - 1).reshape(-1), g0
 
 
 def _decode_window(remix: Remix, runset: RunSet, pos: torch.Tensor, width: int):
@@ -53,8 +50,10 @@ def _decode_window(remix: Remix, runset: RunSet, pos: torch.Tensor, width: int):
     d = remix.d
     q = pos.shape[0]
     ng = (width + d - 1) // d + 1
-    sels, curs, g0 = window_operands(remix, pos, width)
-    runid, absidx, newest, pad = selector_decode(sels, curs)
+    rows, g0 = window_operands(remix, pos, width)
+    runid, absidx, newest, pad = selector_decode(
+        remix.selectors.reshape(remix.g, d), remix.cursors, rows=rows
+    )
     keys, vals, _, tomb = runset.gather(runid, absidx)
     keys = torch.where(pad[..., None], K.INF_WORD, keys)
 

@@ -90,6 +90,22 @@ def test_anchor_search_plain_matches_pallas(g, kw):
         eq(ref_le_count(jnp.asarray(ap), jq, interpret=True), count)
 
 
+@pytest.mark.parametrize("kw", [1, 2, 3])
+@pytest.mark.parametrize("g", [1, 5, 15, 16, 17, 513, 32_768, 100_003, 1 << 20])
+def test_anchor_plan(g, kw):
+    """The kernel's shared-memory sample: every stride-th of G rows."""
+    stride, rows, smem = TA._plan(g, kw)
+    line = TA.LINE_BYTES // (4 * kw)
+    assert smem == rows * kw * 4 <= TA.SAMPLE_BYTES_MAX <= 227 * 1024
+    assert (rows - 1) * stride < g <= rows * stride  # covers G, no row past it
+    doublings = stride // line
+    assert stride == line * doublings and doublings & (doublings - 1) == 0
+    if stride > line:  # the stride doubled only because the sample had to
+        assert -(-g // (stride // 2)) * kw * 4 > TA.SAMPLE_BYTES_MAX
+    if (g, kw) == (32_768, 2):  # the main path: one 128-byte line per block
+        assert (stride, rows, smem) == (16, 2048, 16 * 1024)
+
+
 def random_selectors(rng, q, d, r):
     sel = rng.integers(0, r, size=(q, d)) | (rng.integers(0, 2, size=(q, d)) << 7)
     sel[rng.random((q, d)) < 0.2] = 127
@@ -111,6 +127,41 @@ def test_selector_decode_plain_matches_pallas(d, r, dtype):
     for name, w, g, o in zip(("runid", "absidx", "newest", "pad"), want, got, oracle):
         eq(w, g, name)
         eq(w, o, name)
+
+
+def selector_table(rng, g, d, r):
+    """(g, d) selectors with runids >= R (no cursor, no count), runid 127
+    with the newest bit (255), all-pad rows and placeholder tails; (g, r)
+    cursors."""
+    sel = rng.integers(0, r + 3, size=(g, d)) | (rng.integers(0, 2, size=(g, d)) << 7)
+    sel[rng.random((g, d)) < 0.05] = 255
+    sel[rng.random((g, d)) < 0.2] = 127
+    sel[:, d - rng.integers(0, d // 4 + 1):] = 127
+    sel[::7] = 127
+    cur = rng.integers(0, 1 << 20, size=(g, r)).astype(np.int32)
+    return sel, cur
+
+
+@pytest.mark.parametrize("dtype", [np.uint8, np.int32])
+@pytest.mark.parametrize("d,r", [(8, 3), (16, 8), (32, 8), (64, 16)])
+def test_selector_decode_rows_match_pallas(d, r, dtype):
+    """With ``rows`` the decode reads the (G, D) / (G, R) group tables
+    through the group ids: equal to the Pallas kernel on the gathered tiles,
+    for repeated and unordered ids, all-pad rows and runids >= R."""
+    rng = np.random.default_rng(d * 7 + r)
+    g = 40
+    sel, cur = selector_table(rng, g, d, r)
+    sel = sel.astype(dtype)
+    rows = np.concatenate([rng.integers(0, g, 50), [g - 1, 0, 0, 7, 7, g - 1],
+                           np.arange(g)[::-1]]).astype(np.int32)
+    assert ((sel[rows] != 127) & ((sel[rows] & 0x7F) >= r)).any()
+    assert (sel[rows] == 127).all(axis=1).any()
+    want = ref_selector_decode(jnp.asarray(sel[rows]), jnp.asarray(cur[rows]), r=r,
+                               interpret=True)
+    got = TS.selector_decode(torch.from_numpy(sel), torch.from_numpy(cur),
+                             rows=torch.from_numpy(rows))
+    for name, w, x in zip(("runid", "absidx", "newest", "pad"), want, got):
+        eq(w, x, name)
 
 
 def _indexes(rng, d, r=6, n=300, space=900):
@@ -193,6 +244,8 @@ def test_cpu_tensors_take_the_plain_path(monkeypatch):
     TA.anchor_le_count(as_words(a, CPU), as_words(q, CPU))
     sel, cur = random_selectors(rng, 10, 8, 2)
     TS.selector_decode(torch.from_numpy(sel.astype(np.uint8)), torch.from_numpy(cur))
+    TS.selector_decode(torch.from_numpy(sel.astype(np.uint8)), torch.from_numpy(cur),
+                       rows=torch.tensor([3, 0, 3], dtype=torch.int32))
     (_, _), (tm, ts), _, tq = _indexes(rng, 8, r=2, n=40, space=100)
     TO.scan_live(tm, ts, torch.zeros_like(ts.seq), tq, 5, 9)
     assert counts == (0, 0, 0)
