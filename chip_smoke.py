@@ -24,6 +24,21 @@ Phases, each fatal on failure:
    over CUDA graphs of many launches) beside its bound, its plain version,
    a PyTorch yardstick and a launch floor (a one-element ``add_`` timed the
    same way); end-to-end µs per key / per query and profiled batches.
+5. index tier — the deployment the reference store's defaults put on the
+   ``index`` residency tier (``src/repro/db/store.py``: 256 MiB device
+   budget, 64 MiB block cache, 64-query pipeline slices): 2 partitions of
+   8 runs x 2^20 entries at the same widths, written as SSTables (with
+   CKBs) and REMIX files through ``io.Storage`` into a temporary directory
+   outside the checkout, reopened from the manifest over lazy file handles
+   and the loaded REMIX, and queried through ``get_batch`` /
+   ``scan_windows`` with the values gathered on the host through the block
+   cache; answers against the numpy oracle, syncs per batch, no value byte
+   read at upload, first-pass and warm timings (three of each), the host
+   cost of a missed value granule split into file read and CRC32C, and a
+   profiled batch that shows slice i+1's kernels starting before slice i's
+   host gather ends. Then both kernels on this path's own operands (its
+   anchors, queries and group ids), against their plain versions bit for
+   bit, and timed at its shapes as in phase 4.
 
 The last lines are one JSON object listing the kernels, the card's name
 and power limit from nvidia-smi, and ``{"ok": true, "device": ...}``.
@@ -35,8 +50,10 @@ from __future__ import annotations
 import argparse
 import contextlib
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -48,13 +65,21 @@ SRC = ROOT / "src"
 # src/repro/configs/remixdb.py (RemixServiceConfig): R, entries per run,
 # group size, key words, value words
 R, ENTRIES, D, KW, VW = 8, 1 << 16, 32, 2, 4
-N_PARTITIONS = 32
+N_PARTITIONS = 32  # full-tier depth
 DOMAIN = 1 << 18  # distinct keys per partition: each key in ~2 of the 8 runs
 GET_SMALL, GET_LARGE = 256, 1 << 16
 SCAN_Q, SCAN_WIDTH = 256, 75  # Seek+Next50: n + max(8, n // 2)
-# anchor-kernel sweep; 32768 is the main path's padded group count. Some G
-# are not multiples of the sample stride, and the largest make it double.
-ANCHOR_GS = (1, 5, 17, 513, 5000, 16384, 32768, 100_003, 262_144, 1 << 20)
+# anchor-kernel sweep; 32768 and 2^19 are the padded group counts of the
+# full and the index tier's partitions. Some G are not multiples of the
+# sample stride, and the largest make it double.
+ANCHOR_GS = (1, 5, 17, 513, 5000, 16384, 32768, 100_003, 262_144, 1 << 19, 1 << 20)
+# phase 5: the reference store's defaults (src/repro/db/store.py): device
+# budget (:116), block cache (:95), pipeline slice (:120); at 8 runs x 2^20
+# entries the full view (~296 MB) exceeds the budget, the index view
+# (~195 MB) fits it
+IDX_ENTRIES, IDX_DOMAIN, IDX_PARTITIONS = 1 << 20, 1 << 22, 2
+DEVICE_BUDGET, CACHE_BYTES, SLICE_WIDTH = 256 << 20, 64 << 20, 64
+REPEATS = 3  # first/warm pairs per index-tier batch
 NOW = 1_700_000_000  # query-time clock (uint32 seconds)
 DEV = "cuda"
 HBM_BPS = 3.35e12  # H100 SXM device memory, bytes/s
@@ -275,24 +300,25 @@ def phase_kernels(rng) -> dict:
 
 
 # ---------------------------------------------------------------- phase 3
-def make_tables(rng, lo: int):
+def make_tables(rng, lo: int, entries: int | None = None, distinct: int | None = None):
     """8 overlapping runs over one partition's key range: increasing seq,
     ~5% tombstones, TTLs on ~10% of rows (half already expired)."""
     from repro_torch.db.partition import Table
 
+    entries, distinct = entries or ENTRIES, distinct or DOMAIN
     domain = np.uint64(lo) + np.sort(
-        rng.choice(1 << 36, DOMAIN, replace=False)
+        rng.choice(1 << 36, distinct, replace=False)
     ).astype(np.uint64)
     tables = []
     for i in range(R):
-        keys = np.sort(rng.choice(domain, ENTRIES, replace=False))
-        seq = (np.arange(ENTRIES) + i * ENTRIES + 1).astype(np.uint32)
-        vals = rng.integers(0, 2**32, (ENTRIES, VW), dtype=np.uint64).astype(np.uint32)
-        tomb = rng.random(ENTRIES) < 0.05
-        exp = np.zeros(ENTRIES, np.uint32)
-        ttl = rng.random(ENTRIES) < 0.10
-        delta = rng.integers(1, 1000, ENTRIES)
-        past = rng.random(ENTRIES) < 0.5
+        keys = np.sort(rng.choice(domain, entries, replace=False))
+        seq = (np.arange(entries) + i * entries + 1).astype(np.uint32)
+        vals = rng.integers(0, 2**32, (entries, VW), dtype=np.uint64).astype(np.uint32)
+        tomb = rng.random(entries) < 0.05
+        exp = np.zeros(entries, np.uint32)
+        ttl = rng.random(entries) < 0.10
+        delta = rng.integers(1, 1000, entries)
+        past = rng.random(entries) < 0.5
         exp[ttl] = np.where(past, NOW - delta, NOW + delta)[ttl].astype(np.uint32)
         tables.append(Table(keys=keys, vals=vals, seq=seq, tomb=tomb, exp=exp))
     return domain, tables
@@ -528,77 +554,107 @@ def _pack64(w):
     return (((w[:, 0] - (1 << 31)) << 32) | w[:, 1]).contiguous()
 
 
+def launch_floor(card) -> float:
+    """Device ms of a one-element ``add_`` in the same CUDA-graph harness."""
+    import torch
+
+    x = torch.zeros(1, device=DEV)
+    floor = time_graph(lambda: x.add_(1))
+    log(f"[timing] {card}: launch floor (one-element add_): {floor * 1e3:.3f} us")
+    return floor
+
+
+def time_anchor(anchors, q, label, reps) -> dict:
+    """anchor_search on (G, KW) ``anchors`` and (Q, KW) queries ``q`` as a
+    path hands them: checked against its plain version and
+    ``torch.searchsorted``, then timed beside both and its bound."""
+    import torch
+
+    from repro_torch.kernels import anchor_search as AS
+
+    g, qn = anchors.shape[0], q.shape[0]
+    got = AS.anchor_search(anchors, q)
+    check(torch.equal(got, AS.anchor_search_plain(anchors, q)),
+          f"anchor_search differs from its plain version ({label}, G={g} Q={qn})")
+    a64, q64 = _pack64(anchors), _pack64(q)
+    check(torch.equal(torch.clamp(torch.searchsorted(a64, q64, right=True) - 1, min=0)
+                      .to(torch.int32), got), "searchsorted yardstick disagrees")
+    ms, lib = time_pair(lambda: AS.anchor_search(anchors, q),
+                        lambda: torch.searchsorted(a64, q64, right=True), reps)
+    plain = time_graph(lambda: AS.anchor_search_plain(anchors, q), reps=5)
+    rows, probes = search_probes(a64, q64)
+    b, by = bound_ms(rows * KW * 4 + qn * (KW * 4 + 4), probes * KW * 2)
+    log(f"[timing] anchor_search ({label}) at G={g} Q={qn}: a binary search reads "
+        f"{rows} of {g} anchor rows ({probes} probes); sample plan "
+        f"(stride, rows, bytes) = {AS._plan(g, KW)}")
+    return dict(shape=f"{label}: G={g} KW={KW} Q={qn}", ms=ms, plain_ms=plain,
+                bound_ms=b, bound_by=by, library_ms=lib)
+
+
+def time_decode(remix, rows, label, reps) -> tuple[dict, int]:
+    """selector_decode on ``remix``'s group tables at the (N,) group ids
+    ``rows`` a path hands it: checked against its plain version bit for
+    bit, then timed beside it and its bound; returns the timing and the
+    max |err|."""
+    from repro_torch.kernels import selector_decode as SD
+
+    sel, cur = remix.selectors.reshape(remix.g, D), remix.cursors
+    got = SD.selector_decode(sel, cur, rows=rows)
+    want = SD.selector_decode_plain(sel, cur, rows=rows)
+    e = max(int((a.long() - b.long()).abs().max()) for a, b in zip(got, want))
+    check(e == 0, f"selector_decode differs from its plain version at the {label}")
+    ms = time_graph(lambda: SD.selector_decode(sel, cur, rows=rows), reps)
+    plain = time_graph(lambda: SD.selector_decode_plain(sel, cur, rows=rows), reps=5)
+    n = rows.shape[0]
+    # row ids, gathered selectors and cursors in; runid, absidx, newest, pad out.
+    # Operations: 8 integer ops per slot (decode 3, count 2, cursor 1, flags 2).
+    b, by = bound_ms(n * 4 + n * D + n * remix.r * 4 + n * D * 10, n * D * 8)
+    return dict(shape=f"{label}: N={n} G={remix.g} D={D} R={remix.r}", ms=ms,
+                plain_ms=plain, bound_ms=b, bound_by=by, library_ms=None), e
+
+
+def log_timings(card, name, shapes, floor):
+    for k in shapes:
+        log(f"[timing] {card}: {name} ({k['shape']}): kernel {k['ms'] * 1e3:.3f} us, "
+            f"plain {k['plain_ms'] * 1e3:.3f} us, bound {k['bound_ms'] * 1e3:.4f} us "
+            f"({k['bound_by']}), launch floor {floor * 1e3:.3f} us, library "
+            + ("n/a" if k["library_ms"] is None else f"{k['library_ms'] * 1e3:.3f} us"))
+
+
 def phase_timings(rng, views, domains, starts, err, card) -> list[dict]:
     """Each kernel at each of its main-path shapes, with the operands the
     path hands it, beside a launch floor timed in the same harness."""
     import torch
 
-    from repro_torch.kernels import anchor_search as AS
-    from repro_torch.kernels import selector_decode as SD
     from repro_torch.kernels import ops
 
     dv = views[0]
     remix = dv.remix
-    x = torch.zeros(1, device=DEV)
-    floor = time_graph(lambda: x.add_(1))
-    log(f"[timing] {card}: launch floor (one-element add_): {floor * 1e3:.3f} us")
+    floor = launch_floor(card)
 
     # anchor_search at the two get batches: (G, 2) anchors, 256 / 65,536 queries
-    anchors = remix.anchors
-    g = anchors.shape[0]
-    a64 = _pack64(anchors)
-    anchor = []
-    for qn, reps in ((GET_SMALL, 50), (GET_LARGE, 20)):
-        q = torch.from_numpy(_pack(probe(rng, domains[0], qn))).to(DEV)
-        got = AS.anchor_search(anchors, q)
-        check(torch.equal(got, AS.anchor_search_plain(anchors, q)),
-              f"anchor_search differs from its plain version at Q={qn}")
-        q64 = _pack64(q)
-        check(torch.equal(torch.clamp(torch.searchsorted(a64, q64, right=True) - 1, min=0)
-                          .to(torch.int32), got), "searchsorted yardstick disagrees")
-        ms, lib = time_pair(lambda: AS.anchor_search(anchors, q),
-                            lambda: torch.searchsorted(a64, q64, right=True), reps)
-        plain = time_graph(lambda: AS.anchor_search_plain(anchors, q), reps=5)
-        rows, probes = search_probes(a64, q64)
-        b, by = bound_ms(rows * KW * 4 + qn * (KW * 4 + 4), probes * KW * 2)
-        anchor.append(dict(shape=f"G={g} KW={KW} Q={qn}", ms=ms, plain_ms=plain,
-                           bound_ms=b, bound_by=by, library_ms=lib))
-        log(f"[timing] anchor_search at Q={qn}: a binary search reads {rows} of "
-            f"{g} anchor rows ({probes} probes); sample plan "
-            f"(stride, rows, bytes) = {AS._plan(g, KW)}")
+    anchor = [time_anchor(remix.anchors,
+                          torch.from_numpy(_pack(probe(rng, domains[0], qn))).to(DEV),
+                          "full tier", reps)
+              for qn, reps in ((GET_SMALL, 50), (GET_LARGE, 20))]
 
     # selector_decode at the scan window (256 starts x 4 groups) and at the
     # 65,536-key get window (65,536 x 2 groups): group ids as ops hands them
-    sel_table = remix.selectors.reshape(remix.g, D)
-    cur = remix.cursors
     st = torch.from_numpy(_pack(starts[0])).to(DEV)
     gq = torch.from_numpy(_pack(probe(rng, domains[0], GET_LARGE))).to(DEV)
-    windows = (("scan window", ops.seek(remix, dv.runset, st), SCAN_WIDTH, 50),
-               (f"{GET_LARGE:,}-key get window", ops.seek(remix, dv.runset, gq), 1, 20))
+    windows = (("full tier, scan window", ops.seek(remix, dv.runset, st), SCAN_WIDTH, 50),
+               (f"full tier, {GET_LARGE:,}-key get window",
+                ops.seek(remix, dv.runset, gq), 1, 20))
     decode, e = [], 0
     for label, pos, width, reps in windows:
         rows, _ = ops.window_operands(remix, pos, width)
-        got = SD.selector_decode(sel_table, cur, rows=rows)
-        want = SD.selector_decode_plain(sel_table, cur, rows=rows)
-        e = max(e, *(int((a.long() - b.long()).abs().max()) for a, b in zip(got, want)))
-        check(e == 0, f"selector_decode differs from its plain version at the {label}")
-        ms = time_graph(lambda: SD.selector_decode(sel_table, cur, rows=rows), reps)
-        plain = time_graph(lambda: SD.selector_decode_plain(sel_table, cur, rows=rows),
-                           reps=5)
-        n = rows.shape[0]
-        # row ids, gathered selectors and cursors in; runid, absidx, newest, pad out.
-        # Operations: 8 integer ops per slot (decode 3, count 2, cursor 1, flags 2).
-        b, by = bound_ms(n * 4 + n * D + n * remix.r * 4 + n * D * 10, n * D * 8)
-        decode.append(dict(shape=f"{label}: N={n} D={D} R={remix.r}", ms=ms,
-                           plain_ms=plain, bound_ms=b, bound_by=by, library_ms=None))
+        k, ek = time_decode(remix, rows, label, reps)
+        decode.append(k)
+        e = max(e, ek)
 
     out = []
     for name, shapes, e_k in (("anchor_search", anchor, 0), ("selector_decode", decode, e)):
-        for k in shapes:
-            log(f"[timing] {card}: {name} ({k['shape']}): kernel {k['ms'] * 1e3:.3f} us, "
-                f"plain {k['plain_ms'] * 1e3:.3f} us, bound {k['bound_ms'] * 1e3:.4f} us "
-                f"({k['bound_by']}), launch floor {floor * 1e3:.3f} us, library "
-                + ("n/a" if k["library_ms"] is None else f"{k['library_ms'] * 1e3:.3f} us"))
+        log_timings(card, name, shapes, floor)
         out.append(dict(shapes[0], name=name, shapes=shapes, launch_floor_ms=floor,
                         max_abs_err=max(err[name], e_k)))
     return out
@@ -675,6 +731,362 @@ def phase_end_to_end(rng, mgr, views, domains, starts, card):
                                      with_vals=with_vals), 10)
 
 
+# ---------------------------------------------------------------- phase 5
+def build_index_partitions(rng, root: str):
+    """Write each partition's tables (with CKBs) and its persisted REMIX
+    through ``io.Storage``, commit a manifest, then reopen every partition
+    from the manifest: lazy ``Table.from_file`` handles sharing one block
+    cache, and the REMIX loaded onto the card and adopted with
+    ``preload_index``."""
+    from repro_torch.core.keys import pack_u64
+    from repro_torch.db.partition import Partition, Table
+    from repro_torch.io import BlockCache, Storage, load_remix
+
+    storage = Storage(root)
+    entries, domains, oracles = [], [], []
+    t0 = time.perf_counter()
+    for i in range(IDX_PARTITIONS):
+        lo = (N_PARTITIONS + i) << 40
+        domain, tables = make_tables(rng, lo, IDX_ENTRIES, IDX_DOMAIN)
+        names = [storage.write_table(pack_u64(t.keys), t.vals, t.seq, t.tomb, exp=t.exp)
+                 for t in tables]
+        w = IDX_DOMAIN // 64  # keys the range delete spans
+        a = int(rng.integers(0, IDX_DOMAIN - w))
+        span = [int(domain[a]), int(domain[a + w]), 6 * IDX_ENTRIES + 1]
+        writer = Partition(lo, tables[:6], d=D, device=DEV)
+        writer.attach_excised(*span)
+        writer.tables.extend(tables[6:])
+        writer.persist_index(storage)
+        entries.append(dict(lo=lo, tables=names, remix=writer.remix_name, span=span))
+        domains.append(domain)
+        oracles.append(oracle(tables, [(np.uint64(span[0]), np.uint64(span[1]),
+                                        set(range(6)))]))
+        del writer, tables
+    storage.commit({"partitions": entries})
+    t_write = time.perf_counter() - t0
+
+    state = Storage(root).load_state()
+    cache = BlockCache(CACHE_BYTES)
+    parts = []
+    for pe in state["partitions"]:
+        handles = [Table.from_file(storage.table_path(n)) for n in pe["tables"]]
+        for t in handles:
+            t.attach_cache(cache)
+        p = Partition(pe["lo"], handles[:6], d=D, device=DEV)
+        p.attach_excised(*pe["span"])
+        p.tables.extend(handles[6:])
+        p.preload_index(load_remix(storage.remix_path(pe["remix"]), device=DEV))
+        parts.append(p)
+    disk = sum(os.path.getsize(storage.table_path(n)) for pe in entries for n in pe["tables"])
+    log(f"[index] {IDX_PARTITIONS} partitions x {R} runs x {IDX_ENTRIES} entries "
+        f"generated, written ({disk} table bytes on disk) and persisted in "
+        f"{t_write:.1f} s; reopened from the manifest: {parts[0]!r}")
+    return parts, domains, oracles, cache
+
+
+def _section_reads(p, section: str) -> int:
+    return sum(t._rd().bytes_read[section] for t in p.tables)
+
+
+def index_batch(mgr, v, orc, what, q):
+    """One batch of the phase's traffic over view ``v``, under sync debug
+    "error" and checked against the oracle; returns its wall seconds."""
+    from repro_torch.kernels import device_view as DV
+
+    kind, arg = what
+    s0 = DV.SYNCS
+    t0 = time.perf_counter()
+    with sync_debug_error():
+        if kind == "get":
+            found, vals = mgr.get_batch(v, q, NOW)
+        else:
+            rows = mgr.scan_windows(v, q, SCAN_WIDTH, NOW, with_vals=arg)
+    secs = time.perf_counter() - t0
+    syncs = DV.SYNCS - s0
+    if kind == "get":
+        want = 1
+        f_o, v_o = oracle_get(orc, q)
+        check(np.array_equal(found, f_o), f"index get_batch {arg}: found differs")
+        check(np.array_equal(vals[found], v_o[found]), f"index get_batch {arg}: values differ")
+    else:
+        want = -(-len(q) // SLICE_WIDTH) if arg else 1
+        check_scan(orc, q, rows, arg, f"index scan_windows(with_vals={arg})")
+    check(syncs == want, f"index {what}: {syncs} syncs, expected {want}")
+    return secs
+
+
+def profile_pipeline(mgr, v, starts, card):
+    """Profile one pipelined scan: device busy and idle share, and whether
+    slice i+1's first REMIX kernel starts on the card before slice i's
+    host value gather (a ``record_function`` range) ends."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    call = lambda: mgr.scan_windows(v, starts, SCAN_WIDTH, NOW, with_vals=True)  # noqa: E731
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    call()
+    wall_us = (time.perf_counter() - t0) * 1e6
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        call()
+        torch.cuda.synchronize()
+    evs = prof.events()
+    kern = sorted((e for e in evs if e.device_type == DeviceType.CUDA),
+                  key=lambda e: e.time_range.start)
+    busy_us = sum(e.time_range.end - e.time_range.start for e in kern)
+    gathers = sorted((e.time_range.start, e.time_range.end) for e in evs
+                     if e.name == "device_view.value_gather")
+    # a slice's device work ends with the copies of its outputs: split the
+    # device timeline at each run of device->host copies
+    slices, cur = [[]], None
+    for e in kern:
+        fetch = "DtoH" in e.name
+        if cur is True and not fetch:
+            slices.append([])
+        slices[-1].append(e)
+        cur = fetch
+    ours = [[e.time_range.start for e in sl
+             if "search_kernel" in e.name or "selector_decode_kernel" in e.name]
+            for sl in slices]
+    nsl = -(-len(starts) // SLICE_WIDTH)
+    check(len(gathers) == nsl and len(slices) == nsl and all(ours),
+          f"profiled scan: {len(gathers)} gathers, {len(slices)} device slices with "
+          f"{[len(o) for o in ours]} REMIX kernels, for {nsl} slices")
+    lead = [gathers[i][1] - min(ours[i + 1]) for i in range(nsl - 1)]
+    idle_gap = [min(ours[i + 1]) - slices[i][-1].time_range.end for i in range(nsl - 1)]
+    log(f"[index] {card}: profiled scan_windows ({len(starts)} x {SCAN_WIDTH}, values, "
+        f"{nsl} slices): {wall_us:.1f} us wall unprofiled, {busy_us:.1f} us device "
+        f"busy, idle share {1 - busy_us / wall_us:.3f}, {len(kern)} device ops "
+        f"({[len(o) for o in ours]} REMIX kernels per slice); slice i+1's first "
+        f"REMIX kernel starts {', '.join(f'{x:.1f}' for x in lead)} us before slice "
+        f"i's host gather ends, {', '.join(f'{x:.1f}' for x in idle_gap)} us after "
+        f"slice i's copies; gathers take "
+        f"{', '.join(f'{b - a:.1f}' for a, b in gathers)} us")
+    check(all(x > 0 for x in lead), "slice i+1's kernels did not start before "
+                                    "slice i's host gather ended")
+
+
+def granule_costs(p, cache, card, per_table: int = 8):
+    """Host µs per missed 64 KB value granule, split: the file read alone
+    (open, seek, read), the CRC32C alone, and the whole miss
+    (``read_block`` with the block cache cleared: read, CRC, cache
+    insert), over ``per_table`` granules spread across each table's
+    vals section."""
+    from repro_torch.io.checksum import crc32c
+
+    picks = []
+    for t in p.tables:
+        r = t._rd()
+        blocks = r.section_row_blocks("vals", 0, r.n)
+        picks += [(r, bi) for bi in blocks[:: max(1, len(blocks) // per_table)][:per_table]]
+    chunks = []
+    t0 = time.perf_counter()
+    for r, bi in picks:
+        with open(r.path, "rb") as f:
+            f.seek(r._data_start + bi * r.block_bytes)
+            chunks.append(f.read(r.block_bytes))
+    t_read = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    crcs = [crc32c(c) for c in chunks]
+    t_crc = time.perf_counter() - t0
+    check(all(c == int(r._crcs[bi]) for c, (r, bi) in zip(crcs, picks)), "granule CRC mismatch")
+    cache.clear()
+    t0 = time.perf_counter()
+    for r, bi in picks:
+        r.read_block(bi)
+    t_miss = time.perf_counter() - t0
+    cache.clear()
+    n = len(picks)
+    us = dict(read=t_read / n * 1e6, crc=t_crc / n * 1e6, miss=t_miss / n * 1e6)
+    log(f"[index] {card}: host cost per missed 64 KB value granule ({n} granules, "
+        f"files written seconds before): file read {us['read']:.1f} us, CRC32C "
+        f"{us['crc']:.1f} us, whole miss (read_block: read, CRC, cache insert) "
+        f"{us['miss']:.1f} us")
+    return us
+
+
+def profile_first_pass(mgr, v, cache, q, card):
+    """cProfile one first-pass get_batch (the block cache cleared): host
+    seconds in the CRC32C, in file reads, and in the functions that take
+    the most time of their own."""
+    import cProfile
+    import pstats
+
+    cache.clear()
+    m0 = cache.stats()["misses"]
+    pr = cProfile.Profile()
+    pr.enable()
+    mgr.get_batch(v, q, NOW)
+    pr.disable()
+    misses = cache.stats()["misses"] - m0
+    st = pstats.Stats(pr).stats  # (file, line, func) -> (cc, nc, tt, ct, callers)
+    total = sum(tt for _, _, tt, _, _ in st.values())
+
+    def cum(func, file_end):
+        return sum(ct for (f, _, fn), (_, _, _, ct, _) in st.items()
+                   if fn == func and f.endswith(file_end))
+
+    crc, load = cum("crc32c", "checksum.py"), cum("load", "sstable.py")
+    log(f"[index] {card}: cProfile of a first-pass get_batch at {len(q)} keys "
+        f"({misses} misses): {total * 1e3:.1f} ms of host time; crc32c "
+        f"{crc * 1e3:.1f} ms ({crc / total:.3f}), granule loads (open, read, CRC) "
+        f"{load * 1e3:.1f} ms ({load / total:.3f}); "
+        f"{(load - crc) / max(1, misses) * 1e6:.1f} us open and read and "
+        f"{crc / max(1, misses) * 1e6:.1f} us CRC per miss")
+    top = sorted(st.items(), key=lambda kv: -kv[1][2])[:6]
+    for (f, line, fn), (_, nc, tt, ct, _) in top:
+        log(f"[index]   own {tt * 1e3:8.2f} ms  cum {ct * 1e3:8.2f} ms  x{nc:<6d} "
+            f"{os.path.basename(f)}:{line}({fn})")
+    cache.clear()
+
+
+def phase_index_tier(rng, root, card):
+    """Drive the index tier; returns the kernels' launches over the phase
+    and, per partition, its view and the batches it took (the operands
+    ``phase_index_kernels`` checks the kernels on)."""
+    import torch
+
+    from repro_torch.kernels import anchor_search as AS
+    from repro_torch.kernels import device_view as DV
+    from repro_torch.kernels import selector_decode as SD
+    from repro_torch.obs.events import EventLog
+    from repro_torch.obs.metrics import MetricsRegistry
+
+    parts, domains, oracles, cache = build_index_partitions(rng, root)
+    reg, ev = MetricsRegistry(), EventLog(capacity=256)
+    mgr = DV.DeviceViewManager(DEVICE_BUDGET, slice_width=SLICE_WIDTH,
+                               registry=reg, events=ev, device=DEV)
+    AS.anchor_search.launches = 0
+    SD.selector_decode.launches = 0
+    driven = []
+    for i, p in enumerate(parts):
+        est = (p.device_view_bytes(True), p.device_view_bytes(False))
+        t0 = time.perf_counter()
+        v = mgr.view_for(p)
+        torch.cuda.synchronize()
+        up = time.perf_counter() - t0
+        check(v is not None and v.tier == "index",
+              f"partition {i}: tier {None if v is None else v.tier}, expected index")
+        check(p.last_build_kind == "reuse", f"upload built {p.last_build_kind!r}")
+        check(_section_reads(p, "vals") == 0, "the upload read value bytes")
+        check(v.remix.g in ANCHOR_GS, f"index-tier G {v.remix.g} not in the kernel sweep")
+        log(f"[index] partition {i}: estimates full {est[0]} / index {est[1]} bytes "
+            f"against the {DEVICE_BUDGET}-byte budget; uploaded tier {v.tier}, "
+            f"{v.nbytes} bytes, padded G {v.remix.g}, in {up:.2f} s (REMIX "
+            f"{p.last_build_kind}; read keys {_section_reads(p, 'keys')}, seq "
+            f"{_section_reads(p, 'seq')}, tomb {_section_reads(p, 'tomb')}, exp "
+            f"{_section_reads(p, 'exp')}, vals 0 bytes); resident {mgr.resident_bytes}")
+        if i:
+            evicted = [(e.fields["lo"], e.fields["reason"]) for e in ev.list("device_evict")]
+            check((parts[i - 1].lo, "budget") in evicted,
+                  f"uploading partition {i} did not evict partition {i - 1}: {evicted}")
+            check(mgr.resident_bytes == v.nbytes and len(mgr) == 1, "two views resident")
+        starts = probe(rng, domains[i], SCAN_Q)
+        gets = {n: probe(rng, domains[i], n) for n in (GET_SMALL, GET_LARGE)}
+        traffic = ((("get", GET_SMALL), gets[GET_SMALL], GET_SMALL, "key"),
+                   (("get", GET_LARGE), gets[GET_LARGE], GET_LARGE, "key"),
+                   (("scan", True), starts, SCAN_Q, "query"),
+                   (("scan", False), starts, SCAN_Q, "query"))
+        for what, q, n, unit in traffic:
+            # first pass: the block cache just cleared; warm: the same batch
+            # again at once; each pair REPEATS times
+            runs = {"first": [], "warm": []}
+            counts = {"first": set(), "warm": set()}
+            for _ in range(REPEATS):
+                cache.clear()
+                for label in ("first", "warm"):
+                    c0 = cache.stats()
+                    runs[label].append(index_batch(mgr, v, oracles[i], what, q) / n * 1e6)
+                    c1 = cache.stats()
+                    counts[label].add(tuple(c1[k] - c0[k] for k in ("hits", "misses",
+                                                                   "evictions")))
+            parts_ = [f"{label} {np.median(runs[label]):.3f} us/{unit} median of "
+                      f"{', '.join(f'{x:.3f}' for x in runs[label])} (cache hits, misses, "
+                      f"evictions {' / '.join(str(c) for c in sorted(counts[label]))})"
+                      for label in ("first", "warm")]
+            kind = (f"get_batch at {n} keys" if what[0] == "get" else
+                    f"scan_windows {n} x {SCAN_WIDTH}, with_vals={what[1]}")
+            log(f"[index] {card}: partition {i}: {kind}: " + "; ".join(parts_))
+        granule_costs(p, cache, card)
+        profile_first_pass(mgr, v, cache, gets[GET_SMALL], card)
+        profile_pipeline(mgr, v, starts, card)
+        batches = [("get, 256 keys", gets[GET_SMALL], 1),
+                   (f"get, {GET_LARGE:,} keys", gets[GET_LARGE], 1),
+                   (f"scan without values, {SCAN_Q} starts", starts, SCAN_WIDTH)]
+        batches += [(f"scan slice {k}", starts[k * SLICE_WIDTH:(k + 1) * SLICE_WIDTH],
+                     SCAN_WIDTH) for k in range(-(-SCAN_Q // SLICE_WIDTH))]
+        driven.append((v, batches))
+    fallback = _metric(reg, "device_fallback_total")
+    launches = {"anchor_search": AS.anchor_search.launches,
+                "selector_decode": SD.selector_decode.launches}
+    log(f"[index] launches {launches}; device_fallback_total {fallback}; events "
+        f"{[(e.kind, e.fields['lo'], e.fields.get('reason')) for e in ev.list()]}; "
+        f"answers equal to the oracle; syncs 1 per get, 1 per scan without values, "
+        f"{-(-SCAN_Q // SLICE_WIDTH)} per scan with values")
+    check(fallback == 0, "device_fallback_total != 0")
+    check(all(n > 0 for n in launches.values()), f"a kernel never launched: {launches}")
+    return launches, mgr, driven
+
+
+def phase_index_kernels(mgr, driven, card) -> tuple[dict, dict]:
+    """Both kernels on the index tier's own operands: each partition's
+    uploaded anchors and group tables (padded G 2^19), the queries as
+    ``get_batch`` / ``scan_windows`` upload them (Q 64 per scan slice, 256,
+    65,536), the group ids the seek produces and the window's group ids;
+    every case against its plain version bit for bit, then partition 0's
+    distinct shapes timed beside their bounds."""
+    import torch
+
+    from repro_torch.kernels import anchor_search as AS
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import selector_decode as SD
+
+    err = {"anchor_search": 0, "selector_decode": 0}
+    cases = 0
+    for v, batches in driven:
+        remix, sel = v.remix, v.remix.selectors.reshape(v.remix.g, D)
+        for label, keys, width in batches:
+            q = mgr._queries(keys)
+            g = AS.anchor_search(remix.anchors, q)
+            check(torch.equal(g, AS.anchor_search_plain(remix.anchors, q)),
+                  f"index tier {label}: anchor_search differs from its plain version")
+            pos = ops.seek(remix, v.runset, q)
+            win, _ = ops.window_operands(remix, pos, width)
+            for rows in (g, win):
+                got = SD.selector_decode(sel, remix.cursors, rows=rows)
+                want = SD.selector_decode_plain(sel, remix.cursors, rows=rows)
+                e = max(int((a.long() - b.long()).abs().max()) for a, b in zip(got, want))
+                err["selector_decode"] = max(err["selector_decode"], e)
+                check(e == 0, f"index tier {label}: selector_decode differs from its "
+                              f"plain version (N={rows.shape[0]})")
+            cases += 1
+    log(f"[index] both kernels on the index tier's operands of {len(driven)} partitions "
+        f"x {len(driven[0][1])} batches (anchors G={driven[0][0].remix.g}; Q "
+        f"{sorted({len(k) for _, k, _ in driven[0][1]})}; seek and window group ids): "
+        f"{cases} cases bit-identical to the plain versions")
+
+    v, batches = driven[0]
+    remix = v.remix
+    floor = launch_floor(card)
+    anchor, decode = [], []
+    seen_q = set()
+    for label, keys, width in batches[:4]:  # the gets, the scan, one scan slice
+        q = mgr._queries(keys)
+        reps = 20 if len(keys) > GET_SMALL else 50
+        if len(keys) not in seen_q:
+            seen_q.add(len(keys))
+            anchor.append(time_anchor(remix.anchors, q, f"index tier, {label}", reps))
+        g = AS.anchor_search(remix.anchors, q)
+        win, _ = ops.window_operands(remix, ops.seek(remix, v.runset, q), width)
+        if label.startswith("get") or label.startswith("scan slice"):
+            decode.append(time_decode(remix, g, f"index tier, {label}, seek", reps)[0])
+        decode.append(time_decode(remix, win, f"index tier, {label}, window", reps)[0])
+    log_timings(card, "anchor_search", anchor, floor)
+    log_timings(card, "selector_decode", decode, floor)
+    return {"anchor_search": anchor, "selector_decode": decode}, err
+
+
 def smi() -> str:
     p = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -709,6 +1121,13 @@ def main() -> int:
         mgr, views, starts, launches = phase_main(rng, parts, domains, oracles)
         timings = phase_timings(rng, views, domains, starts, err, card)
         phase_end_to_end(rng, mgr, views, domains, starts, card)
+        with tempfile.TemporaryDirectory() as root:
+            idx_launches, idx_mgr, driven = phase_index_tier(rng, root, card)
+        launches = {k: n + idx_launches[k] for k, n in launches.items()}
+        idx_shapes, idx_err = phase_index_kernels(idx_mgr, driven, card)
+        for t in timings:
+            t["shapes"] += idx_shapes[t["name"]]
+            t["max_abs_err"] = max(t["max_abs_err"], idx_err[t["name"]])
         log(f"[device] peak allocated {torch.cuda.max_memory_allocated()} bytes")
     except Fail as e:
         print(f"chip_smoke.py: FAILED: {e}", file=sys.stderr)

@@ -17,7 +17,7 @@ import math
 import numpy as np
 import torch
 
-from repro_torch.device import ordered
+from repro_torch.device import ordered, resolve
 
 KW = 2  # default number of uint32 words per key (64-bit keys)
 
@@ -25,9 +25,9 @@ UINT32_MAX = np.uint32(0xFFFFFFFF)
 INF_WORD = -1  # the +inf sentinel word (0xFFFFFFFF) as an int32 bit-view
 
 
-def max_key(kw: int = KW, device="cpu") -> torch.Tensor:
+def max_key(kw: int = KW, device="cuda") -> torch.Tensor:
     """The +inf sentinel key (all words 0xFFFFFFFF)."""
-    return torch.full((kw,), INF_WORD, dtype=torch.int32, device=device)
+    return torch.full((kw,), INF_WORD, dtype=torch.int32, device=resolve(device))
 
 
 def pack_u64(x) -> np.ndarray:

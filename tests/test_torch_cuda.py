@@ -142,3 +142,57 @@ def test_device_view_on_card_matches_cpu(card):
     for (ka, xa), (kb, xb) in zip(rows_a, rows_b):
         np.testing.assert_array_equal(ka, kb)
         np.testing.assert_array_equal(xa, xb)
+
+
+def test_index_tier_on_card_matches_cpu(card, tmp_path):
+    """A file-backed partition under a budget that only its index view
+    fits: the same answers on the card and on the CPU, no value byte read
+    at upload, one sync per get and per scan without values, one per
+    4-query slice of a scan with values."""
+    from repro_torch.core.keys import pack_u64
+    from repro_torch.db.partition import Partition, Table
+    from repro_torch.io import BlockCache, Storage
+    from repro_torch.kernels import device_view as DV
+
+    rng = np.random.default_rng(5)
+    domain = np.arange(1, 6000, dtype=np.uint64) * np.uint64(977)
+    storage = Storage(str(tmp_path))
+    names = []
+    for i in range(4):
+        keys = np.sort(rng.choice(domain, 2000, replace=False))
+        exp = np.where(rng.random(2000) < 0.2, rng.choice([90, 110], 2000), 0)
+        names.append(storage.write_table(
+            pack_u64(keys),
+            rng.integers(0, 2**32, (2000, 4), dtype=np.uint64).astype(np.uint32),
+            (np.arange(2000) + i * 2000 + 1).astype(np.uint32),
+            rng.random(2000) < 0.05, exp=exp.astype(np.uint32)))
+    q = domain[rng.integers(0, len(domain), 256)]
+    answers = []
+    for dev in ("cpu", card):
+        tables = [Table.from_file(storage.table_path(n)) for n in names]
+        cache = BlockCache(1 << 20)
+        for t in tables:
+            t.attach_cache(cache)
+        p = Partition(0, tables, d=32, device=dev)
+        p.attach_excised(int(domain[100]), int(domain[300]), seq=10**6)
+        budget = (p.device_view_bytes(True) + p.device_view_bytes(False)) // 2
+        mgr = DV.DeviceViewManager(budget, slice_width=4, device=dev)
+        v = mgr.view_for(p)
+        assert v.tier == "index"
+        assert sum(t._rd().bytes_read["vals"] for t in tables) == 0
+        s0 = DV.SYNCS
+        got = mgr.get_batch(v, q, 100)
+        assert DV.SYNCS - s0 == 1
+        rows = mgr.scan_windows(v, q[:30], 75, 100)
+        assert DV.SYNCS - s0 == 1 + 8
+        keys_only = mgr.scan_windows(v, q[:30], 75, 100, with_vals=False)
+        assert DV.SYNCS - s0 == 1 + 8 + 1
+        answers.append((got, rows, keys_only))
+    (fa, va), rows_a, ko_a = answers[0]
+    (fb, vb), rows_b, ko_b = answers[1]
+    np.testing.assert_array_equal(fa, fb)
+    np.testing.assert_array_equal(va, vb)
+    for (ka, xa), (kb, xb), (kc, _) in zip(rows_a, rows_b, ko_b):
+        np.testing.assert_array_equal(ka, kb)
+        np.testing.assert_array_equal(xa, xb)
+        np.testing.assert_array_equal(ka, kc)

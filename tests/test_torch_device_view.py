@@ -245,3 +245,164 @@ def test_partition_index_bakes_liveness_like_reference(monkeypatch):
         np.testing.assert_array_equal(np.asarray(fr), ft.numpy())
         np.testing.assert_array_equal(np.asarray(vr), vt.numpy().view(np.uint32))
         assert rp.last_build_kind == tp.last_build_kind
+
+
+# ---- the index residency tier: file-backed partitions ----
+
+def make_file_pair(root, seed, lo, n_tables=4, n=2000, vw=3):
+    """The same file-backed partition in both packages, over SSTables the
+    reference wrote: ``n_tables`` overlapping tables with tombstones and
+    TTLs, and an excised span over the first two."""
+    from repro.core.keys import pack_u64
+    from repro.io import Storage
+
+    rng = np.random.default_rng(seed)
+    domain = np.uint64(lo) + np.arange(1, 3 * n, dtype=np.uint64) * np.uint64(5)
+    storage = Storage(str(root))
+    names = []
+    for i in range(n_tables):
+        keys = np.sort(rng.choice(domain, n, replace=False))
+        exp = np.zeros(n, np.uint32)
+        ttl = rng.random(n) < 0.2
+        exp[ttl] = rng.choice([NOW - 10, NOW + 10, NOW + 100], int(ttl.sum()))
+        names.append(storage.write_table(
+            pack_u64(keys),
+            rng.integers(0, 2**32, (n, vw), dtype=np.uint64).astype(np.uint32),
+            (np.arange(n) + i * n + 1).astype(np.uint32), rng.random(n) < 0.1,
+            exp=exp))
+    pair = []
+    for P, T, kw in ((RPartition, RTable, {}), (TPartition, TTable, {"device": "cpu"})):
+        tables = [T.from_file(storage.table_path(m)) for m in names]
+        p = P(lo, tables[:2], d=D, **kw)
+        p.attach_excised(int(domain[200]), int(domain[700]), seq=10**6)
+        p.tables.extend(tables[2:])
+        pair.append(p)
+    return pair, domain
+
+
+def index_managers(budget):
+    """Both managers, with 4-query pipeline slices."""
+    rr, tr = RRegistry(), TRegistry()
+    re_, te = REventLog(), TEventLog()
+    rm = RDV.DeviceViewManager(budget, slice_width=4, registry=rr, events=re_,
+                               interpret=True)
+    tm = TDV.DeviceViewManager(budget, slice_width=4, registry=tr, events=te,
+                               device="cpu")
+    return (rm, rr, re_), (tm, tr, te)
+
+
+def between_tiers(p):
+    """A budget below the full view and above the index view."""
+    full, index = p.device_view_bytes(True), p.device_view_bytes(False)
+    assert index < full
+    return (full + index) // 2
+
+
+def vals_read(p):
+    return [t._rd().bytes_read["vals"] for t in p.tables]
+
+
+def test_index_tier_batches_match_reference(tmp_path):
+    (rp, tp), domain = make_file_pair(tmp_path, 20, 1 << 40)
+    ref, port = index_managers(between_tiers(tp))
+    rv, tv = ref[0].view_for(rp), port[0].view_for(tp)
+    assert rv.tier == tv.tier == "index"
+    assert rv.nbytes == tv.nbytes and rv.vw == tv.vw == 3
+    assert tv.runset.vw == 1  # dummy values on the card
+    assert vals_read(rp) == vals_read(tp) == [0] * 4  # no value byte at upload
+    assert_same_state(ref, port)
+    rng = np.random.default_rng(21)
+    for now in (NOW, NOW + 50):
+        q = probes(rng, domain)
+        r0, t0 = RDV.SYNCS, TDV.SYNCS
+        fr, vr = ref[0].get_batch(rv, q, now)
+        ft, vt = port[0].get_batch(tv, q, now)
+        assert (RDV.SYNCS - r0, TDV.SYNCS - t0) == (1, 1)
+        np.testing.assert_array_equal(fr, ft)
+        np.testing.assert_array_equal(vr, vt)
+        assert vt.dtype == np.uint32 and 0 < ft.sum() < len(q)
+        starts = q[:42]  # 11 slices of 4, the last one ragged
+        for with_vals, syncs in ((True, 11), (False, 1)):
+            r0, t0 = RDV.SYNCS, TDV.SYNCS
+            a = ref[0].scan_windows(rv, starts, 21, now, with_vals=with_vals)
+            b = port[0].scan_windows(tv, starts, 21, now, with_vals=with_vals)
+            assert (RDV.SYNCS - r0, TDV.SYNCS - t0) == (syncs, syncs)
+            assert len(a) == len(b) == len(starts)
+            for (ka, va), (kb, vb) in zip(a, b):
+                np.testing.assert_array_equal(ka, kb)
+                if with_vals:
+                    np.testing.assert_array_equal(va, vb)
+                    assert vb.dtype == np.uint32
+                else:
+                    assert va is None and vb is None
+            assert sum(len(k) for k, _ in b) > 0
+    assert vals_read(rp) == vals_read(tp) and sum(vals_read(tp)) > 0
+    assert_same_state(ref, port)
+
+
+def test_index_tier_eviction_matches_reference(tmp_path):
+    pairs = [make_file_pair(tmp_path / str(s), 30 + s, (s + 1) << 40)[0]
+             for s in range(3)]
+    ref, port = index_managers(between_tiers(pairs[0][1]))
+    for i in (0, 1, 0, 2):  # each upload evicts the one before it
+        rp, tp = pairs[i]
+        rv, tv = ref[0].view_for(rp), port[0].view_for(tp)
+        assert rv.tier == tv.tier == "index"
+        assert_same_state(ref, port)
+        assert len(port[0]) == 1 and port[0].resident_bytes == tv.nbytes
+    evicted = [(e.fields["lo"], e.fields["tier"], e.fields["reason"])
+               for e in port[2].list("device_evict")]
+    assert evicted == [((s + 1) << 40, "index", "budget") for s in (0, 1, 0)]
+    assert all(sum(vals_read(tp)) == 0 for _, tp in pairs)
+
+
+def test_device_index_without_vals_matches_reference(tmp_path):
+    (rp, tp), _ = make_file_pair(tmp_path, 40, 1 << 40, n_tables=3)
+    _assert_arrays_equal(_arrays(*rp.device_index(with_vals=False)),
+                         _arrays(*tp.device_index(with_vals=False)))
+    assert vals_read(rp) == vals_read(tp) == [0] * 3
+    assert rp.last_build_kind == tp.last_build_kind == "scratch"
+    assert repr(rp) == repr(tp)
+
+
+@pytest.mark.parametrize("file_backed", [True, False])
+def test_no_tier_fits_falls_back_like_reference(tmp_path, file_backed):
+    """Below the index view, or between the tiers with in-memory tables,
+    neither package uploads: both count one fallback."""
+    if file_backed:
+        (rp, tp), _ = make_file_pair(tmp_path, 50, 1 << 40, n_tables=3)
+        budget = tp.device_view_bytes(False) - 1
+    else:
+        (rp, _), (tp, _) = make_pair(51, 1 << 40)[0]
+        budget = between_tiers(tp)
+    ref, port = index_managers(budget)
+    assert ref[0].view_for(rp) is None and port[0].view_for(tp) is None
+    assert_same_state(ref, port)
+    assert metric(port[1], "device_fallback_total") == 1
+
+
+def test_persisted_remix_is_reused_at_upload(tmp_path):
+    """persist_index → load_remix → preload_index: the index-tier upload
+    reuses the loaded REMIX, in both packages, over the same files."""
+    import repro.io as RIO
+    import repro_torch.io as TIO
+
+    (rp, tp), domain = make_file_pair(tmp_path, 60, 1 << 40, n_tables=3)
+    storage = RIO.Storage(str(tmp_path / "x"))
+    rp.persist_index(storage)
+    tstorage = TIO.Storage(str(tmp_path / "y"))
+    tp.persist_index(tstorage)
+    with open(storage.remix_path(rp.remix_name), "rb") as f, \
+            open(tstorage.remix_path(tp.remix_name), "rb") as g:
+        assert f.read() == g.read()
+    (rp2, tp2), _ = make_file_pair(tmp_path / "again", 60, 1 << 40, n_tables=3)
+    rp2.preload_index(RIO.load_remix(storage.remix_path(rp.remix_name)))
+    tp2.preload_index(TIO.load_remix(tstorage.remix_path(tp.remix_name), device="cpu"))
+    ref, port = index_managers(between_tiers(tp2))
+    rv, tv = ref[0].view_for(rp2), port[0].view_for(tp2)
+    assert rp2.last_build_kind == tp2.last_build_kind == "reuse"
+    assert rv.tier == tv.tier == "index" and sum(vals_read(tp2)) == 0
+    q = probes(np.random.default_rng(61), domain)
+    for a, b in zip(ref[0].get_batch(rv, q, NOW), port[0].get_batch(tv, q, NOW)):
+        np.testing.assert_array_equal(a, b)
+    assert_same_state(ref, port)

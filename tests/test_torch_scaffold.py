@@ -97,8 +97,19 @@ def test_entry_points_run_on_the_cpu_when_asked():
     assert DeviceViewManager(1 << 20, device="cpu").device.type == "cpu"
 
 
-def test_file_backed_tables_wait_for_the_io_slice():
+def test_file_backed_table_answers_from_the_header(tmp_path):
+    """A lazy ``Table(path=...)`` answers ``n``, ``vw`` and ``repr`` from
+    the file's header and loads no section."""
     from repro_torch.db.partition import Table
+    from repro_torch.io import write_sstable
 
-    with pytest.raises(NotImplementedError):
-        Table(path="t.sst")
+    keys = np.stack([np.zeros(100, np.uint32), np.arange(100, dtype=np.uint32)], 1)
+    path = str(tmp_path / "t.sst")
+    write_sstable(path, keys, np.zeros((100, 3), np.uint32), np.arange(100),
+                  np.zeros(100, bool))
+    t = Table(path=path)
+    assert repr(t) == f"Table(path={path!r}, n=?, resident=False)"
+    assert (t.n, t.vw) == (100, 3)
+    assert repr(t) == f"Table(path={path!r}, n=100, resident=False)"
+    assert not t.resident
+    assert not any(t._rd().bytes_read.values())
