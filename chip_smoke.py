@@ -10,7 +10,8 @@ Phases, each fatal on failure:
 1. build — compile ``src/repro_torch/csrc/*.cu`` with nvcc (first use).
 2. kernels — each CUDA kernel against its plain PyTorch version on the
    card, bit for bit, across sweeps of shapes and types (anchor counts G
-   up to 2^20, queries at and past the +inf tail; selector tiles and group
+   up to 2^20, every power of two from 1,024; one query alone and
+   batches, queries at and past the +inf tail; selector tiles and group
    ids, runids >= R).
 3. main path — 32 in-memory partitions at the widths of
    ``src/repro/configs/remixdb.py`` (R=8 runs of 65,536 entries, D=32,
@@ -39,6 +40,33 @@ Phases, each fatal on failure:
    host gather ends. Then both kernels on this path's own operands (its
    anchors, queries and group ids), against their plain versions bit for
    bit, and timed at its shapes as in phase 4.
+6. store — the port's ``RemixDB`` through its public API, at the widths
+   of ``src/repro/configs/remixdb.py`` (VW = 4, D = 32) with every other
+   ``RemixDBConfig`` field at the reference's default, in a temporary
+   data directory outside the checkout under a logical clock. Load: 2^20
+   put_batch keys uniform over [0, 2^40) in batches of 65,536 and a short
+   unflushed last batch (20% overwrites, TTLs on 10% — half expired at
+   query time —, 1% point deletes per batch through one ``Batch`` of
+   ``Op.delete``, one ``delete_range``), through minor and split
+   compactions. Then three
+   stages, every answer checked against an independent numpy oracle:
+   (1) the store as loaded, with the memtable overlay, then flushed (scans
+   through ``scan_windows``), then a new unflushed tail; (2) ``close`` and
+   ``RemixDB.open``: the WAL tail replayed, cold reads until every
+   partition's ``promotion`` event, then device views; (3) reopened with
+   ``use_kernels=True, device_path="off", cold_reads=False``: the kernels
+   through the cursor (every scan over the WAL's overlay), then flushed,
+   through ``ops.get`` / ``ops.scan``. Per stage: µs per key of get_batch
+   (256 and 65,536 keys) and per query of scan_batch (256 × 50), three
+   first/warm pairs; syncs per batch against touched partitions (every
+   view-path batch with its views resident runs under the sync debug
+   mode ``error``, its cursor fallbacks under ``warn``, counted apart;
+   the legacy path is held to its blocking copies per partition), both
+   kernels' launches, resident and allocated device bytes, a profiled
+   256-key get. After stages 2 and 3, outside the counted runs, both
+   kernels against their plain versions bit for bit on that stage's own
+   operands (the views, or each partition's ``p.index()`` with the
+   store's padded queries and the cursor's one-key seek), and timed.
 
 The last lines are one JSON object listing the kernels, the card's name
 and power limit from nvidia-smi, and ``{"ok": true, "device": ...}``.
@@ -70,9 +98,11 @@ DOMAIN = 1 << 18  # distinct keys per partition: each key in ~2 of the 8 runs
 GET_SMALL, GET_LARGE = 256, 1 << 16
 SCAN_Q, SCAN_WIDTH = 256, 75  # Seek+Next50: n + max(8, n // 2)
 # anchor-kernel sweep; 32768 and 2^19 are the padded group counts of the
-# full and the index tier's partitions. Some G are not multiples of the
-# sample stride, and the largest make it double.
-ANCHOR_GS = (1, 5, 17, 513, 5000, 16384, 32768, 100_003, 262_144, 1 << 19, 1 << 20)
+# full and the index tier's partitions, and the powers of two from 1,024
+# up hold every padded G of the store's partitions (phase 6). Some G are
+# not multiples of the sample stride, and the largest make it double.
+ANCHOR_GS = (1, 5, 17, 513, 1024, 2048, 4096, 5000, 8192, 16384, 32768, 65536,
+             100_003, 131_072, 262_144, 1 << 19, 1 << 20)
 # phase 5: the reference store's defaults (src/repro/db/store.py): device
 # budget (:116), block cache (:95), pipeline slice (:120); at 8 runs x 2^20
 # entries the full view (~296 MB) exceeds the budget, the index view
@@ -81,6 +111,21 @@ IDX_ENTRIES, IDX_DOMAIN, IDX_PARTITIONS = 1 << 20, 1 << 22, 2
 DEVICE_BUDGET, CACHE_BYTES, SLICE_WIDTH = 256 << 20, 64 << 20, 64
 REPEATS = 3  # first/warm pairs per index-tier batch
 NOW = 1_700_000_000  # query-time clock (uint32 seconds)
+# phase 6: the port's RemixDB at the widths of src/repro/configs/remixdb.py
+# (VW=4, D=32), every other RemixDBConfig field at the reference's
+# default; keys uniform over [0, 2^40). 2^20 keys, not 2^21: at 2^21 the
+# whole script ran past 4.5 minutes on the card
+STORE_KEYS, STORE_BATCH, STORE_DOMAIN = 1 << 20, 1 << 16, 1 << 40
+STORE_TAIL = 4096  # the load's last, short batch: unflushed
+STORE_GET_SMALL, STORE_GET_LARGE = 256, 1 << 16
+STORE_SCAN_Q, STORE_SCAN_N = 256, 50  # Seek+Next50
+STORE_EDGE_ROUNDS = 12  # batches allowed for every partition to promote
+T_LOAD = NOW - 1000  # the load's clock; queries run at NOW
+TTL_SHORT, TTL_LONG = 500, 1 << 20  # expired / live at NOW
+# blocking copies per partition on the store's legacy path
+# (src/repro_torch/db/store.py, _get_batch_at / _scan_group_at): the query
+# words in; found and values out, or keys, valid and values out
+LEGACY_COPIES = {"get": 3, "scan": 4}
 DEV = "cuda"
 HBM_BPS = 3.35e12  # H100 SXM device memory, bytes/s
 INT32_LANES_PER_SM = 64  # Hopper SM: 4 partitions x 16 INT32 lanes (H100 whitepaper)
@@ -249,25 +294,29 @@ def phase_kernels(rng) -> dict:
     cuda = torch.device(DEV)
     err = {"anchor_search": 0, "selector_decode": 0}
     n = 0
-    # 1,000 queries take the warp-per-query search, `many` the sampled one
+    # 1 query (the cursor's seek) and 1,000 take the warp-per-query search,
+    # `many` the sampled one
     many = AS.SAMPLE_MIN_QUERIES_PER_SM * sm_count(torch.empty(0, device=cuda)) + 5
     for g in ANCHOR_GS:
         for kw in (1, 2, 3):
             a_np = _sorted_anchors(rng, g, kw)
             a = as_words(a_np, cuda)
-            for nq in (1000, many):
-                q = as_words(_anchor_queries(rng, a_np, nq), cuda)
-                for kern, plain in ((AS.anchor_le_count, AS.anchor_le_count_plain),
-                                    (AS.anchor_search, AS.anchor_search_plain)):
-                    got = kern(a, q).cpu().numpy().astype(np.int64)
-                    want = plain(a, q).cpu().numpy().astype(np.int64)
-                    e = int(np.abs(got - want).max())
-                    err["anchor_search"] = max(err["anchor_search"], e)
-                    check(e == 0, f"{kern.__name__} G={g} KW={kw} Q={nq}: max |err| {e}")
-                    n += 1
+            for nq in (1, 1000, many):
+                qs = _anchor_queries(rng, a_np, max(nq, 8))
+                # Q = 1: each of the eight edge queries launched alone
+                for q_np in ([qs[i:i + 1] for i in range(8)] if nq == 1 else [qs]):
+                    q = as_words(q_np, cuda)
+                    for kern, plain in ((AS.anchor_le_count, AS.anchor_le_count_plain),
+                                        (AS.anchor_search, AS.anchor_search_plain)):
+                        got = kern(a, q).cpu().numpy().astype(np.int64)
+                        want = plain(a, q).cpu().numpy().astype(np.int64)
+                        e = int(np.abs(got - want).max())
+                        err["anchor_search"] = max(err["anchor_search"], e)
+                        check(e == 0, f"{kern.__name__} G={g} KW={kw} Q={nq}: max |err| {e}")
+                        n += 1
     log(f"[kernels] anchor_search/anchor_le_count: {n} cases bit-identical "
-        f"(G in {ANCHOR_GS}; KW 1-3; Q 1,000 and {many}; +inf tails; queries "
-        "at and past them)")
+        f"(G in {ANCHOR_GS}; KW 1-3; Q 1 (8 edge queries alone), 1,000 and {many}; "
+        "+inf tails; queries at and past them)")
     n = 0
     for d in (8, 16, 32, 64):
         # 700 rows: a row group per warp; 40,000: four per warp
@@ -944,7 +993,7 @@ def profile_first_pass(mgr, v, cache, q, card):
 def phase_index_tier(rng, root, card):
     """Drive the index tier; returns the kernels' launches over the phase
     and, per partition, its view and the batches it took (the operands
-    ``phase_index_kernels`` checks the kernels on)."""
+    ``view_kernels`` checks the kernels on)."""
     import torch
 
     from repro_torch.kernels import anchor_search as AS
@@ -1029,42 +1078,51 @@ def phase_index_tier(rng, root, card):
     return launches, mgr, driven
 
 
-def phase_index_kernels(mgr, driven, card) -> tuple[dict, dict]:
-    """Both kernels on the index tier's own operands: each partition's
-    uploaded anchors and group tables (padded G 2^19), the queries as
-    ``get_batch`` / ``scan_windows`` upload them (Q 64 per scan slice, 256,
-    65,536), the group ids the seek produces and the window's group ids;
-    every case against its plain version bit for bit, then partition 0's
-    distinct shapes timed beside their bounds."""
+def hold_kernels(remix, runset, q, widths, what, err) -> None:
+    """Both kernels on one batch as a path hands them: the (Q, KW) query
+    words ``q`` against ``remix``'s anchors, then the seek's group ids and
+    the group ids of a window of each of ``widths`` from the seek's
+    positions, each against its plain version bit for bit."""
     import torch
 
     from repro_torch.kernels import anchor_search as AS
     from repro_torch.kernels import ops
     from repro_torch.kernels import selector_decode as SD
 
+    sel = remix.selectors.reshape(remix.g, D)
+    g = AS.anchor_search(remix.anchors, q)
+    check(torch.equal(g, AS.anchor_search_plain(remix.anchors, q)),
+          f"{what}: anchor_search differs from its plain version")
+    pos = ops.seek(remix, runset, q)
+    for rows in [g] + [ops.window_operands(remix, pos, w)[0] for w in widths]:
+        got = SD.selector_decode(sel, remix.cursors, rows=rows)
+        want = SD.selector_decode_plain(sel, remix.cursors, rows=rows)
+        e = max(int((a.long() - b.long()).abs().max()) for a, b in zip(got, want))
+        err["selector_decode"] = max(err["selector_decode"], e)
+        check(e == 0, f"{what}: selector_decode differs from its plain version "
+                      f"(N={rows.shape[0]})")
+
+
+def view_kernels(mgr, driven, card, tier="index tier", tag="index") -> tuple[dict, dict]:
+    """Both kernels on a path's own operands: each partition's uploaded
+    anchors and group tables (the index tier: padded G 2^19), the queries
+    as ``get_batch`` / ``scan_windows`` upload them (the index tier: Q 64
+    per scan slice, 256, 65,536), the group ids the seek produces and the
+    window's group ids; every case against its plain version bit for bit,
+    then the first partition's distinct shapes timed beside their bounds."""
+    from repro_torch.kernels import anchor_search as AS
+    from repro_torch.kernels import ops
+
     err = {"anchor_search": 0, "selector_decode": 0}
     cases = 0
     for v, batches in driven:
-        remix, sel = v.remix, v.remix.selectors.reshape(v.remix.g, D)
         for label, keys, width in batches:
-            q = mgr._queries(keys)
-            g = AS.anchor_search(remix.anchors, q)
-            check(torch.equal(g, AS.anchor_search_plain(remix.anchors, q)),
-                  f"index tier {label}: anchor_search differs from its plain version")
-            pos = ops.seek(remix, v.runset, q)
-            win, _ = ops.window_operands(remix, pos, width)
-            for rows in (g, win):
-                got = SD.selector_decode(sel, remix.cursors, rows=rows)
-                want = SD.selector_decode_plain(sel, remix.cursors, rows=rows)
-                e = max(int((a.long() - b.long()).abs().max()) for a, b in zip(got, want))
-                err["selector_decode"] = max(err["selector_decode"], e)
-                check(e == 0, f"index tier {label}: selector_decode differs from its "
-                              f"plain version (N={rows.shape[0]})")
+            hold_kernels(v.remix, v.runset, mgr._queries(keys), [width], f"{tier} {label}", err)
             cases += 1
-    log(f"[index] both kernels on the index tier's operands of {len(driven)} partitions "
-        f"x {len(driven[0][1])} batches (anchors G={driven[0][0].remix.g}; Q "
-        f"{sorted({len(k) for _, k, _ in driven[0][1]})}; seek and window group ids): "
-        f"{cases} cases bit-identical to the plain versions")
+    log(f"[{tag}] both kernels on the {tier}'s operands of {len(driven)} partitions "
+        f"(anchors G {sorted({v.remix.g for v, _ in driven})}; Q "
+        f"{sorted({len(k) for _, b in driven for _, k, _ in b})}; seek and window group "
+        f"ids): {cases} cases bit-identical to the plain versions")
 
     v, batches = driven[0]
     remix = v.remix
@@ -1076,15 +1134,654 @@ def phase_index_kernels(mgr, driven, card) -> tuple[dict, dict]:
         reps = 20 if len(keys) > GET_SMALL else 50
         if len(keys) not in seen_q:
             seen_q.add(len(keys))
-            anchor.append(time_anchor(remix.anchors, q, f"index tier, {label}", reps))
+            anchor.append(time_anchor(remix.anchors, q, f"{tier}, {label}", reps))
         g = AS.anchor_search(remix.anchors, q)
         win, _ = ops.window_operands(remix, ops.seek(remix, v.runset, q), width)
         if label.startswith("get") or label.startswith("scan slice"):
-            decode.append(time_decode(remix, g, f"index tier, {label}, seek", reps)[0])
-        decode.append(time_decode(remix, win, f"index tier, {label}, window", reps)[0])
+            decode.append(time_decode(remix, g, f"{tier}, {label}, seek", reps)[0])
+        decode.append(time_decode(remix, win, f"{tier}, {label}, window", reps)[0])
     log_timings(card, "anchor_search", anchor, floor)
     log_timings(card, "selector_decode", decode, floor)
     return {"anchor_search": anchor, "selector_decode": decode}, err
+
+
+# ---------------------------------------------------------------- phase 6
+class StoreOracle:
+    """Independent model of the store's live map: every write the phase
+    issues, in order, resolved with numpy at query time (newest write per
+    key wins, a range delete hides the writes before it, a TTL expires at
+    ``exp <= now``)."""
+
+    def __init__(self, vw: int):
+        self.vw = vw
+        self.keys, self.vals, self.exp, self.tomb, self.order = [], [], [], [], []
+        self.ranges = []  # (lo, hi, order)
+        self.n = 0
+
+    def _add(self, keys, vals, exp, tomb):
+        keys = np.asarray(keys, np.uint64)
+        self.keys.append(keys)
+        self.vals.append(np.asarray(vals, np.uint32).reshape(len(keys), self.vw))
+        self.exp.append(np.broadcast_to(np.asarray(exp, np.uint32), len(keys)))
+        self.tomb.append(np.full(len(keys), tomb))
+        self.order.append(self.n + np.arange(len(keys), dtype=np.int64))
+        self.n += len(keys)
+
+    def put(self, keys, vals, exp=0):
+        self._add(keys, vals, exp, False)
+
+    def delete(self, keys):
+        self._add(keys, np.zeros((len(keys), self.vw), np.uint32), 0, True)
+
+    def delete_range(self, lo, hi):
+        self.ranges.append((lo, hi, self.n))
+        self.n += 1
+
+    def resolve(self, now):
+        keys = np.concatenate(self.keys)
+        order = np.concatenate(self.order)
+        idx = np.lexsort((-order, keys))
+        ks = keys[idx]
+        first = np.ones(len(ks), bool)
+        first[1:] = ks[1:] != ks[:-1]
+        top = idx[first]
+        vals = np.concatenate(self.vals)[top]
+        exp = np.concatenate(self.exp)[top]
+        dead = np.concatenate(self.tomb)[top] | ((exp != 0) & (exp <= np.uint32(now)))
+        for lo, hi, o in self.ranges:
+            dead |= (keys[top] >= np.uint64(lo)) & (keys[top] < np.uint64(hi)) & (order[top] < o)
+        self.all_keys = keys[top]
+        self.live_keys, self.live_vals = keys[top][~dead], vals[~dead]
+        self.dead_keys = keys[top][dead]
+        self.expired = keys[top][(exp != 0) & (exp <= np.uint32(now))]
+        self.overwritten = np.unique(ks[~first])
+        return self
+
+    def get(self, q):
+        lk = self.live_keys
+        i = np.searchsorted(lk, q)
+        ic = np.minimum(i, len(lk) - 1)
+        found = (i < len(lk)) & (lk[ic] == q)
+        return found, self.live_vals[ic]
+
+    def scan(self, start, n):
+        i = int(np.searchsorted(self.live_keys, np.uint64(start)))
+        return self.live_keys[i:i + n], self.live_vals[i:i + n]
+
+
+@contextlib.contextmanager
+def count_syncs():
+    """Count the batch's device syncs: result fetches (``device_view.SYNCS``,
+    whose event waits run with the sync debug mode off) and every other
+    synchronising call, which the ``warn`` mode reports as a warning."""
+    import warnings
+
+    import torch
+
+    from repro_torch.kernels import device_view as DV
+
+    box = {"fetch": DV.SYNCS, "other": 0}
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        if DEV == "cuda":
+            torch.cuda.set_sync_debug_mode("warn")
+        try:
+            yield box
+        finally:
+            if DEV == "cuda":
+                torch.cuda.set_sync_debug_mode(0)
+    box["fetch"] = DV.SYNCS - box["fetch"]
+    box["other"] = sum("synchroniz" in str(w.message) for w in caught)
+
+
+def _store_probe(rng, orc, q):
+    """Live hits, 1/8 misses, and deleted, expired and overwritten keys."""
+    q_miss = q // 8
+    q_special = q // 8
+    special = np.concatenate([orc.dead_keys, orc.expired, orc.overwritten])
+    parts = [rng.choice(orc.live_keys, q - q_miss - q_special),
+             rng.integers(0, STORE_DOMAIN, q_miss, dtype=np.uint64),
+             rng.choice(special, q_special)]
+    out = np.concatenate(parts).astype(np.uint64)
+    rng.shuffle(out)
+    return out
+
+
+def _touched(db, keys) -> list:
+    """Partitions a get_batch sends keys to: those not answered by the
+    memtable overlay or hidden by an unflushed range tombstone."""
+    from repro_torch.db.sharded import route_host
+
+    over = np.array(sorted(db.mem.data.keys()), np.uint64)
+    rest = keys[~np.isin(keys, over)]
+    rest = np.array([k for k in rest.tolist() if not db.mem.covers(k)], np.uint64)
+    return [db.partitions[i] for i in np.unique(route_host([p.lo for p in db.partitions], rest))]
+
+
+def _sync_rule(db, parts) -> str | None:
+    """What a batch over these partitions may synchronise, known before it
+    runs. ``"view"``: the device-view path with every view resident, which
+    waits on the card only for its one fetch per partition (the batch runs
+    under the sync debug mode ``error``). ``"legacy"``: the legacy path
+    (``p.index()`` plus the query module) with every index built, whose
+    copies block as the reference's ``jnp.asarray`` / ``np.asarray`` do:
+    ``LEGACY_COPIES`` per partition, none a fetch. None: a first pass that
+    uploads views or builds indexes, or a cold read; its syncs are counted
+    and printed."""
+    if db.device_views is not None:
+        resident = db.device_views._views
+        return "view" if all(id(p) in resident for p in parts) else None
+    if DEV == "cuda" and not db.cfg.cold_reads and all(p._remix is not None for p in parts):
+        return "legacy"
+    return None
+
+
+def _launch_counts():
+    from repro_torch.kernels import anchor_search as AS
+    from repro_torch.kernels import selector_decode as SD
+
+    return {"anchor_search": AS.anchor_search.launches,
+            "selector_decode": SD.selector_decode.launches}
+
+
+def _store_get(db, orc, keys, what):
+    """One store get_batch against the oracle, its syncs held to
+    ``_sync_rule``; returns seconds, syncs, touched partitions and the
+    rule."""
+    import torch
+
+    parts = _touched(db, keys)
+    touched = len(parts)
+    rule = _sync_rule(db, parts)
+    b0 = _metric(db.registry, "device_batches")
+    with count_syncs() as syncs:
+        ctx = sync_debug_error() if rule == "view" else contextlib.nullcontext()
+        t0 = time.perf_counter()
+        with ctx:
+            found, vals = db.get_batch(keys)
+        dt = time.perf_counter() - t0
+    f_o, v_o = orc.get(keys)
+    check(np.array_equal(found, f_o), f"{what}: found differs from the oracle")
+    check(np.array_equal(vals[found], v_o[found]), f"{what}: values differ from the oracle")
+    dev_batches = _metric(db.registry, "device_batches") - b0
+    if rule == "view":
+        check(syncs["fetch"] == touched == dev_batches and syncs["other"] == 0,
+              f"{what}: {syncs} syncs, {dev_batches} device batches for {touched} "
+              "touched partitions")
+    if rule == "legacy":
+        check(syncs["fetch"] == 0 and syncs["other"] == LEGACY_COPIES["get"] * touched,
+              f"{what}: {syncs} syncs on the legacy path for {touched} touched partitions")
+    if DEV == "cuda":
+        torch.cuda.synchronize()
+    return dt, syncs, touched, rule
+
+
+def _store_scan_batch(db, orc, starts, n, what):
+    """One store scan_batch against the oracle, counting the cursor
+    fallbacks (``RemixDB._scan_at`` calls) and their syncs apart from the
+    batch's own. Over an empty overlay the batch takes one window call per
+    touched partition, and its syncs are held to ``_sync_rule``: on the
+    view path it runs under the sync debug mode ``error``, each fallback
+    under ``warn``. Over a non-empty overlay every query takes the cursor."""
+    import warnings
+
+    import torch
+
+    from repro_torch.db.sharded import route_host
+
+    parts = [db.partitions[i]
+             for i in np.unique(route_host([p.lo for p in db.partitions], starts))]
+    rule = None if len(db.mem) or db.mem.ranges else _sync_rule(db, parts)
+    falls = [0, 0]  # fallbacks, their syncs
+    orig = db._scan_at
+
+    def counted(*a, **kw):
+        falls[0] += 1
+        mode = torch.cuda.get_sync_debug_mode() if DEV == "cuda" else 0
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            if DEV == "cuda":
+                torch.cuda.set_sync_debug_mode("warn")
+            try:
+                return orig(*a, **kw)
+            finally:
+                if DEV == "cuda":
+                    torch.cuda.set_sync_debug_mode(mode)
+                falls[1] += sum("synchroniz" in str(w.message) for w in caught)
+
+    db._scan_at = counted
+    try:
+        with count_syncs() as syncs:
+            ctx = sync_debug_error() if rule == "view" else contextlib.nullcontext()
+            t0 = time.perf_counter()
+            with ctx:
+                kk, mm = db.scan_batch(starts, n)
+            dt = time.perf_counter() - t0
+    finally:
+        del db._scan_at
+    for i, s in enumerate(starts.tolist()):
+        ko, _ = orc.scan(s, n)
+        check(np.array_equal(kk[i][mm[i]], ko), f"{what}: row {i} differs from the oracle")
+    want = {"view": (len(parts), 0),
+            "legacy": (0, LEGACY_COPIES["scan"] * len(parts))}.get(rule)
+    check(want is None or (syncs["fetch"], syncs["other"]) == want,
+          f"{what}: {syncs} syncs besides {falls[1]} in {falls[0]} cursor fallbacks "
+          f"for {len(parts)} touched partitions ({rule} path)")
+    return dt, syncs, falls, len(parts), rule
+
+
+def _store_reads(db, orc, rng, stage, card):
+    """The stage's traffic: get_batch at 256 and 65,536 keys and
+    scan_batch of 256 starts x 50, three first/warm pairs each (µs per key
+    or per query, median with min-max), a single scan and a cursor across
+    a partition boundary. Each batch's syncs are held to ``_sync_rule``
+    (the rule is printed with them: view, legacy, or None where the batch
+    uploads, builds or reads cold)."""
+    parts = db.partitions
+    lows = [p.lo for p in parts]
+    for q in (STORE_GET_SMALL, STORE_GET_LARGE):
+        runs = {"first": [], "warm": []}
+        notes = set()
+        for _ in range(REPEATS):
+            keys = _store_probe(rng, orc, q)
+            for label in ("first", "warm"):
+                dt, syncs, touched, rule = _store_get(
+                    db, orc, keys, f"{stage} get_batch {q} {label}")
+                runs[label].append(dt / q * 1e6)
+                notes.add((label, str(rule), touched, syncs["fetch"], syncs["other"]))
+        log(f"[store] {card}: {stage}: get_batch at {q} keys: " + "; ".join(
+            f"{label} {np.median(v):.4f} us/key (min {min(v):.4f}, max {max(v):.4f})"
+            for label, v in runs.items())
+            + "; (pass, sync rule, touched partitions, fetch syncs, other syncs) "
+            f"{sorted(notes)}")
+    runs = {"first": [], "warm": []}
+    notes = set()
+    for _ in range(REPEATS):
+        starts = np.sort(rng.choice(orc.live_keys, STORE_SCAN_Q)).astype(np.uint64)
+        for label in ("first", "warm"):
+            dt, syncs, falls, touched, rule = _store_scan_batch(
+                db, orc, starts, STORE_SCAN_N, f"{stage} scan_batch {label}")
+            runs[label].append(dt / STORE_SCAN_Q * 1e6)
+            notes.add((label, str(rule), touched, falls[0], falls[1], syncs["fetch"],
+                       syncs["other"]))
+    log(f"[store] {card}: {stage}: scan_batch {STORE_SCAN_Q} x {STORE_SCAN_N}: " + "; ".join(
+        f"{label} {np.median(v):.3f} us/query (min {min(v):.3f}, max {max(v):.3f})"
+        for label, v in runs.items())
+        + "; (pass, sync rule, touched partitions, cursor fallbacks, their syncs, "
+        f"fetch syncs, other syncs) {sorted(notes)}")
+    s = int(rng.choice(orc.live_keys))
+    kk, vv = db.scan(s, STORE_SCAN_N)
+    ko, vo = orc.scan(s, STORE_SCAN_N)
+    check(np.array_equal(kk, ko) and np.array_equal(vv, vo), f"{stage}: scan differs")
+    check(len(parts) > 1, f"{stage}: one partition; no boundary to cross")
+    b = int(lows[len(lows) // 2])
+    start = int(orc.live_keys[max(0, np.searchsorted(orc.live_keys, np.uint64(b)) - 100)])
+    with db.cursor(start, width=64) as cur:
+        kk, vv = cur.next_batch(300)
+    ko, vo = orc.scan(start, 300)
+    check(np.array_equal(kk, ko) and np.array_equal(vv, vo),
+          f"{stage}: cursor across the boundary at {b} differs")
+    check(kk[0] < b <= kk[-1], f"{stage}: the cursor did not cross {b}")
+    log(f"[store] {stage}: scan({s}, {STORE_SCAN_N}) and a cursor of 300 entries "
+        f"across the partition boundary at {b} equal the oracle")
+
+
+def _store_memory(db, stage, base):
+    """The store's device bytes: its views (``hbm_resident_bytes``) beside
+    what torch allocated since the phase began (``base``: the earlier
+    phases' views stay allocated), which also holds each partition's
+    plain index built by compaction, the cursor and the legacy path."""
+    import torch
+
+    alloc = torch.cuda.memory_allocated() - base if DEV == "cuda" else 0
+    peak = torch.cuda.max_memory_allocated() - base if DEV == "cuda" else 0
+    log(f"[store] {stage}: hbm_resident_bytes {_metric(db.registry, 'hbm_resident_bytes')} "
+        f"(views {0 if db.device_views is None else len(db.device_views)}); since the "
+        f"phase began torch.cuda.memory_allocated {alloc}, max_memory_allocated {peak}; "
+        f"partitions with a plain index on the card "
+        f"{sum(p._remix is not None for p in db.partitions)}")
+
+
+def _store_load(db, orc, rng) -> int:
+    """``STORE_KEYS`` put_batch keys in batches of ``STORE_BATCH``, then a
+    last batch of ``STORE_TAIL`` keys that stops short of a memtable flush
+    (unflushed writes for the overlay and the WAL replay): 20% overwrites
+    of earlier keys, TTLs on 10% (half of them expired at ``NOW``), 1%
+    point deletes per batch through one Batch of Op.delete, one
+    delete_range a third of the way in. Returns the keys put."""
+    from repro_torch.db.ops import Batch, Op
+
+    nb = STORE_KEYS // STORE_BATCH + 1
+    pool = np.zeros(0, np.uint64)
+    n_put = 0
+    for b in range(nb):
+        n = STORE_BATCH
+        if b == nb - 1:
+            n = min(STORE_TAIL, (db.cfg.memtable_entries - len(db.mem)) * 9 // 10)
+        over = rng.choice(pool, n // 5) if len(pool) else pool
+        keys = np.unique(np.concatenate([
+            rng.integers(0, STORE_DOMAIN, n - len(over), dtype=np.uint64), over]))
+        rng.shuffle(keys)
+        vals = rng.integers(0, 2**32, (len(keys), VW), dtype=np.uint64).astype(np.uint32)
+        ttl = rng.random(len(keys)) < 0.10
+        ttls = np.where(rng.random(int(ttl.sum())) < 0.5, TTL_SHORT, TTL_LONG)
+        dels = rng.choice(pool if len(pool) else keys, n // 100)
+        db.put_batch(keys[~ttl], vals[~ttl])
+        db.put_batch(keys[ttl], vals[ttl], ttl=ttls)
+        orc.put(keys[~ttl], vals[~ttl])
+        orc.put(keys[ttl], vals[ttl], exp=(T_LOAD + ttls).astype(np.uint32))
+        res = db.submit(Batch([Op.delete(int(k)) for k in dels]), sync=True).result()
+        check(res.ok, "the delete batch failed")
+        orc.delete(dels)
+        if b == nb // 3:
+            lo = int(rng.integers(0, STORE_DOMAIN - (1 << 34)))
+            db.delete_range(lo, lo + (1 << 34))
+            orc.delete_range(lo, lo + (1 << 34))
+        pool = np.concatenate([pool, keys])
+        n_put += len(keys)
+    return n_put
+
+
+def _store_operands(db, orc, rng):
+    """Each promoted partition's view and the batches the store hands it:
+    a 256-key and a 65,536-key get_batch and a 256-start scan_batch, routed
+    to partitions as the store routes them (overlay keys included: the
+    kernels' inputs, not the answers, are what is checked)."""
+    from repro_torch.db.sharded import route_host
+
+    parts = db.partitions
+    lows = [p.lo for p in parts]
+    gets = {q: _store_probe(rng, orc, q) for q in (STORE_GET_SMALL, STORE_GET_LARGE)}
+    starts = np.sort(rng.choice(orc.live_keys, STORE_SCAN_Q)).astype(np.uint64)
+    width = STORE_SCAN_N + max(8, STORE_SCAN_N // 2)  # the store's scan window
+    driven = []
+    order = sorted(range(len(parts)), key=lambda i: -parts[i].n_entries)
+    for i in order:
+        v = db.device_views.view_for(parts[i])
+        check(v is not None, "a promoted partition has no view")
+        batches = []
+        for label, keys, w in ((f"get, {STORE_GET_SMALL} keys", gets[STORE_GET_SMALL], 1),
+                               (f"get, {STORE_GET_LARGE:,} keys", gets[STORE_GET_LARGE], 1),
+                               (f"scan, {STORE_SCAN_Q} starts", starts, width)):
+            mine = keys[route_host(lows, keys) == i]
+            if len(mine):
+                batches.append((f"{label} ({len(mine)} to this partition)", mine, w))
+        driven.append((v, batches))
+    return db.device_views, driven
+
+
+def _legacy_operands(db, orc, rng):
+    """Each partition's ``p.index()`` REMIX and the queries the legacy path
+    and the cursor hand the kernels: a 256-key and a 65,536-key get_batch
+    and a 256-start scan_batch, routed as the store routes them and padded
+    to its power-of-two buckets (``store._pow2pad``), and the cursor's
+    one-key seek with the windows it reads (a scan fallback's width
+    n + max(8, n // 2), ``cursor(width=64)``, and the widening cap)."""
+    from repro_torch.core import keys as CK
+    from repro_torch.db import cursor as C
+    from repro_torch.db.sharded import route_host
+    from repro_torch.db.store import _pow2pad
+    from repro_torch.device import as_words
+
+    parts = db.partitions
+    lows = [p.lo for p in parts]
+    gets = {q: _store_probe(rng, orc, q) for q in (STORE_GET_SMALL, STORE_GET_LARGE)}
+    starts = np.sort(rng.choice(orc.live_keys, STORE_SCAN_Q)).astype(np.uint64)
+    width = STORE_SCAN_N + max(8, STORE_SCAN_N // 2)
+    driven = []
+    for i in sorted(range(len(parts)), key=lambda i: -parts[i].n_entries):
+        p = parts[i]
+        remix, runset = p.index()
+        batches = []
+        for label, keys, ws in ((f"get, {STORE_GET_SMALL} keys", gets[STORE_GET_SMALL], [1]),
+                                (f"get, {STORE_GET_LARGE:,} keys", gets[STORE_GET_LARGE], [1]),
+                                (f"scan, {STORE_SCAN_Q} starts", starts, [width])):
+            mine = keys[route_host(lows, keys) == i]
+            if len(mine):
+                kq = np.pad(mine, (0, _pow2pad(len(mine)) - len(mine)))
+                batches.append((f"{label} ({len(mine)} to this partition, padded to "
+                                f"{len(kq)})", as_words(CK.pack_u64(kq), p.device), ws))
+        mine = orc.live_keys[route_host(lows, orc.live_keys) == i]
+        one = np.array([rng.choice(mine)], np.uint64)
+        batches.append(("cursor seek, 1 key", as_words(CK.pack_u64(one), p.device),
+                        [width, 64, C._MAX_WIDTH]))
+        driven.append((p, remix, runset, batches))
+    return driven
+
+
+def legacy_kernels(driven, card) -> tuple[dict, dict]:
+    """Both kernels on the legacy path's and the cursor's own operands
+    (``_legacy_operands``), against their plain versions bit for bit,
+    then the cursor's one-key seek, the shape the legacy stage launches
+    most, timed on the largest partition beside its bounds."""
+    from repro_torch.kernels import anchor_search as AS
+    from repro_torch.kernels import ops
+
+    err = {"anchor_search": 0, "selector_decode": 0}
+    cases = 0
+    for _, remix, runset, batches in driven:
+        for label, q, widths in batches:
+            hold_kernels(remix, runset, q, widths, f"store legacy path {label}", err)
+            cases += 1
+    log(f"[store] both kernels on the legacy path's and the cursor's operands of "
+        f"{len(driven)} partitions (p.index() G {sorted({r.g for _, r, _, _ in driven})}; "
+        f"Q {sorted({q.shape[0] for *_, b in driven for _, q, _ in b})}; seek and window "
+        f"group ids): {cases} cases bit-identical to the plain versions")
+    _, remix, runset, batches = driven[0]
+    _, q, widths = batches[-1]
+    floor = launch_floor(card)
+    anchor = [time_anchor(remix.anchors, q, "store, cursor seek", 50)]
+    g = AS.anchor_search(remix.anchors, q)
+    win, _ = ops.window_operands(remix, ops.seek(remix, runset, q), widths[0])
+    decode = [time_decode(remix, g, "store, cursor seek", 50)[0],
+              time_decode(remix, win, f"store, cursor window of {widths[0]}", 50)[0]]
+    log_timings(card, "anchor_search", anchor, floor)
+    log_timings(card, "selector_decode", decode, floor)
+    return {"anchor_search": anchor, "selector_decode": decode}, err
+
+
+def _store_tail(db, orc, rng):
+    """Unflushed writes for the overlay and the WAL replay: 4,096 puts
+    (a quarter overwrites, a tenth with TTLs) and 64 point deletes."""
+    keys = np.unique(np.concatenate([
+        rng.integers(0, STORE_DOMAIN, 3072, dtype=np.uint64),
+        rng.choice(orc.all_keys, 1024)]))
+    vals = rng.integers(0, 2**32, (len(keys), VW), dtype=np.uint64).astype(np.uint32)
+    ttl = np.arange(len(keys)) % 10 == 0
+    db.put_batch(keys[~ttl], vals[~ttl])
+    db.put_batch(keys[ttl], vals[ttl], ttl=TTL_LONG)
+    dels = rng.choice(orc.live_keys, 64)
+    for k in dels.tolist():
+        db.delete(k)
+    orc.put(keys[~ttl], vals[~ttl])
+    orc.put(keys[ttl], vals[ttl], exp=NOW + TTL_LONG)
+    orc.delete(dels)
+    orc.resolve(NOW)
+    check(len(db.mem) > 0, "the tail flushed")
+    log(f"[store] stage 1: tail of {len(keys)} puts and {len(dels)} deletes left in "
+        f"the memtable ({len(db.mem)} entries)")
+
+
+def store_config(root, **over):
+    """The phase's RemixDBConfig: the widths of src/repro/configs/remixdb.py
+    on ``DEV``, every field not in ``over`` at the reference's default."""
+    from repro_torch.db.store import RemixDBConfig
+
+    return RemixDBConfig(vw=VW, d=D, data_dir=root, device=DEV, **over)
+
+
+def _g_guard(stage, gs):
+    check(set(gs) <= set(ANCHOR_GS), f"{stage}: store G {sorted(gs)} not in the kernel sweep")
+
+
+def phase_store(rng, root, card):
+    """Drive the port's RemixDB through its public API (see the module
+    docstring, phase 6); returns the kernels' launches over the phase, the
+    timed shapes and the kernels' max |err| on the store's operands."""
+    import torch
+
+    from repro_torch.db import clock
+    from repro_torch.db.store import RemixDB
+
+    t_now = [float(T_LOAD)]
+    clock.set_source(lambda: t_now[0])
+    mem0 = 0
+    if DEV == "cuda":
+        torch.cuda.synchronize()
+        mem0 = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+    cfg = store_config(root)
+    log(f"[store] RemixDBConfig: vw {cfg.vw}, d {cfg.d}, memtable_entries "
+        f"{cfg.memtable_entries}, {cfg.compaction}, device_path {cfg.device_path}, "
+        f"device_budget_bytes {cfg.device_budget_bytes}, cache_bytes {cfg.cache_bytes}, "
+        f"device_slice {cfg.device_slice}, cold_reads {cfg.cold_reads}, promote_fraction "
+        f"{cfg.promote_fraction}, sync_policy {cfg.sync_policy}, ckb {cfg.ckb}")
+    launches = {k: 0 for k in _launch_counts()}
+
+    def run_stage(stage, fn):
+        from repro_torch.kernels import anchor_search as AS
+        from repro_torch.kernels import selector_decode as SD
+
+        AS.anchor_search.launches = 0
+        SD.selector_decode.launches = 0
+        out = fn()
+        got = _launch_counts()  # read before the kernel checks launch more
+        log(f"[store] {stage}: kernel launches {got}")
+        check(all(n > 0 for n in got.values()), f"{stage}: a kernel never launched: {got}")
+        for k, n in got.items():
+            launches[k] += n
+        return out
+
+    # ---- load
+    orc = StoreOracle(VW)
+    db = RemixDB(cfg)
+    t0 = time.perf_counter()
+    n_put = _store_load(db, orc, rng)
+    load_s = time.perf_counter() - t0
+    st = db.stats()
+    flush = db.registry.histogram("db_flush_seconds").summary()
+    du = sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(root) for f in fs)
+    kinds = st["compaction"]["kinds"]
+    log(f"[store] {card}: loaded {n_put} put_batch keys ({orc.n} writes with the "
+        f"deletes) in {load_s:.3f} s: {n_put / load_s:.0f} keys/s; db_flush_seconds count "
+        f"{flush['count']} sum {flush['sum']:.3f} s (p50 {flush['p50']:.3f}, max "
+        f"{flush['max']:.3f}); {st['partitions']} partitions, {st['tables']} tables, "
+        f"{st['entries']} entries, {du} bytes on disk; memtable {st['memtable']} "
+        f"entries unflushed; compaction kinds {kinds}; write amplification {st['wa']:.3f}")
+    check({"minor", "split"} <= set(kinds), f"compaction kinds {kinds}: no minor or split")
+    check(st["memtable"] > 0, "the last batch flushed the memtable")
+    t_now[0] = float(NOW)
+    orc.resolve(NOW)
+    log(f"[store] oracle at now: {len(orc.live_keys)} live keys, {len(orc.dead_keys)} "
+        f"dead ({len(orc.expired)} expired), {len(orc.overwritten)} overwritten")
+
+    # ---- stage 1: the store as loaded, then flushed, then a new tail
+    def stage1():
+        _store_reads(db, orc, rng, "stage 1 (as loaded, memtable overlay)", card)
+        t0 = time.perf_counter()
+        db.flush()
+        log(f"[store] stage 1: flush in {time.perf_counter() - t0:.3f} s; memtable "
+            f"{len(db.mem)}; {len(db.partitions)} partitions")
+        _store_reads(db, orc, rng, "stage 1 (flushed, no overlay)", card)
+        _store_tail(db, orc, rng)
+        views = db.device_views._views.values()
+        log(f"[store] stage 1: view tiers {sorted({v.tier for v in views})} over "
+            f"{len(db.device_views)} views ({sum(v.nbytes for v in views)} bytes)")
+        check(all(v.tier == "full" for v in views), "a view is not on the full tier")
+        keys = _store_probe(rng, orc, STORE_GET_SMALL)
+        from repro_torch.db.ops import Batch, Op
+
+        futs = [db.submit(Batch([Op.multiget(keys)])) for _ in range(4)]
+        for f in futs:
+            r = f.result(timeout=120).results[0]
+            f_o, v_o = orc.get(keys)
+            check(np.array_equal(r.found, f_o) and np.array_equal(r.vals[r.found], v_o[r.found]),
+                  "an async multiget on the submit workers differs from the oracle")
+        log("[store] stage 1: 4 async multigets on the submit worker threads equal the oracle")
+        _store_memory(db, "stage 1", mem0)
+        if DEV == "cuda":
+            profile_batches(f"{card}: store get_batch at {STORE_GET_SMALL} keys",
+                            lambda: db.get_batch(keys), 10)
+
+    run_stage("stage 1", stage1)
+    fallback = _metric(db.registry, "device_fallback_total")
+    check(fallback == 0, f"device_fallback_total {fallback}")
+    mem_n = len(db.mem)
+    db.close()
+
+    # ---- stage 2: reopen, cold reads, the promotion edge
+    def stage2():
+        t0 = time.perf_counter()
+        db2 = RemixDB.open(root, cfg)
+        log(f"[store] {card}: stage 2: RemixDB.open in {time.perf_counter() - t0:.3f} s: "
+            f"{len(db2.partitions)} partitions, {sum(p.cold_ready() for p in db2.partitions)} "
+            f"cold-ready, memtable {len(db2.mem)} entries replayed from the WAL")
+        check(len(db2.mem) == mem_n, "the WAL replay lost memtable entries")
+        check(all(p.cold_ready() for p in db2.partitions), "a partition is not cold-ready")
+        _store_memory(db2, "stage 2 at open", mem0)
+        check(_metric(db2.registry, "hbm_resident_bytes") == 0, "views resident at open")
+        edge = []
+        for i in range(STORE_EDGE_ROUNDS):
+            keys = _store_probe(rng, orc, STORE_GET_SMALL if i < 2 else STORE_GET_LARGE)
+            c0 = db2.stats()["cold"]["gets"]
+            b0 = _metric(db2.registry, "device_batches")
+            dt, syncs, touched, _ = _store_get(db2, orc, keys, f"stage 2 edge {i}")
+            promoted = {e.fields["lo"] for e in db2.events.list("promotion")}
+            edge.append((i, len(keys), round(dt / len(keys) * 1e6, 4),
+                         db2.stats()["cold"]["gets"] - c0,
+                         _metric(db2.registry, "device_batches") - b0,
+                         len(promoted), syncs["fetch"]))
+            if len(promoted) == len(db2.partitions) and edge[-1][4] > 0:
+                break
+        log(f"[store] {card}: stage 2 promotion edge: (batch, keys, us/key, cold gets, "
+            f"device batches, partitions promoted, fetch syncs) {edge}")
+        check(edge[0][3] > 0 and edge[0][4] == 0, "the first batch after open was not cold")
+        check(edge[-1][5] == len(db2.partitions), "not every partition was promoted")
+        check(edge[-1][4] > 0, "device_batches did not rise after promotion")
+        _store_reads(db2, orc, rng, "stage 2 (reopened, promoted)", card)
+        _store_memory(db2, "stage 2", mem0)
+        check(_metric(db2.registry, "device_fallback_total") == 0, "device_fallback_total != 0")
+        # the kernels on this path's own operands (outside the counted run)
+        driven = _store_operands(db2, orc, rng)
+        db2.close()
+        return driven
+
+    driven = run_stage("stage 2", stage2)
+    _g_guard("stage 2", {v.remix.g for v, _ in driven[1]})
+    shapes, err = (view_kernels(driven[0], driven[1], card, tier="store", tag="store")
+                   if DEV == "cuda" else ({}, {}))
+
+    # ---- stage 3: the legacy path with the kernels, over the WAL's
+    # overlay (every scan takes the cursor), then flushed (ops.scan)
+    def stage3():
+        t0 = time.perf_counter()
+        db3 = RemixDB.open(root, store_config(root, use_kernels=True, device_path="off",
+                                              cold_reads=False))
+        log(f"[store] {card}: stage 3: RemixDB.open(use_kernels=True, device_path='off', "
+            f"cold_reads=False) in {time.perf_counter() - t0:.3f} s")
+        check(db3.device_views is None, "stage 3 built device views")
+        _store_reads(db3, orc, rng, "stage 3 (use_kernels, legacy path, overlay)", card)
+        t0 = time.perf_counter()
+        db3.flush()
+        log(f"[store] stage 3: flush in {time.perf_counter() - t0:.3f} s; memtable "
+            f"{len(db3.mem)}; {len(db3.partitions)} partitions")
+        _store_reads(db3, orc, rng, "stage 3 (use_kernels, legacy path, flushed)", card)
+        _store_memory(db3, "stage 3", mem0)
+        check(db3.device_views is None and all(p._remix is not None for p in db3.partitions),
+              "stage 3 left a partition without its legacy index")
+        # the kernels on this path's own operands (outside the counted run)
+        driven = _legacy_operands(db3, orc, rng)
+        db3.close()
+        return driven
+
+    driven = run_stage("stage 3", stage3)
+    _g_guard("stage 3", {remix.g for _, remix, _, _ in driven})
+    if DEV == "cuda":
+        legacy_shapes, legacy_err = legacy_kernels(driven, card)
+        shapes = {k: shapes[k] + legacy_shapes[k] for k in shapes}
+        err = {k: max(err[k], legacy_err[k]) for k in err}
+    clock.reset()
+    return launches, shapes, err
 
 
 def smi() -> str:
@@ -1124,11 +1821,17 @@ def main() -> int:
         with tempfile.TemporaryDirectory() as root:
             idx_launches, idx_mgr, driven = phase_index_tier(rng, root, card)
         launches = {k: n + idx_launches[k] for k, n in launches.items()}
-        idx_shapes, idx_err = phase_index_kernels(idx_mgr, driven, card)
+        idx_shapes, idx_err = view_kernels(idx_mgr, driven, card)
+        del idx_mgr, driven
+        peak = torch.cuda.max_memory_allocated()  # phase 6 resets the peak
+        with tempfile.TemporaryDirectory() as root:
+            store_launches, store_shapes, store_err = phase_store(rng, root, card)
+        launches = {k: n + store_launches[k] for k, n in launches.items()}
         for t in timings:
-            t["shapes"] += idx_shapes[t["name"]]
-            t["max_abs_err"] = max(t["max_abs_err"], idx_err[t["name"]])
-        log(f"[device] peak allocated {torch.cuda.max_memory_allocated()} bytes")
+            t["shapes"] += idx_shapes[t["name"]] + store_shapes[t["name"]]
+            t["max_abs_err"] = max(t["max_abs_err"], idx_err[t["name"]],
+                                   store_err[t["name"]])
+        log(f"[device] peak allocated {max(peak, torch.cuda.max_memory_allocated())} bytes")
     except Fail as e:
         print(f"chip_smoke.py: FAILED: {e}", file=sys.stderr)
         return 1

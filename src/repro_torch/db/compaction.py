@@ -1,0 +1,195 @@
+"""Compaction planning and execution (paper §4.2).
+
+For each partition receiving new data the planner picks one of:
+  abort  — keep new data in MemTable+WAL (minor WA ratio above threshold,
+           subject to the 15 % global carry budget);
+  minor  — write new tables, no rewrite of existing ones;
+  major  — sort-merge the input-file subset with the best input/output ratio;
+  split  — full merge into several new partitions (M tables each).
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import numpy as np
+
+from repro_torch.db.partition import Partition, Table, chunk_table, merge_tables
+
+
+@dataclasses.dataclass
+class Plan:
+    kind: str  # abort | minor | major | split
+    partition: Partition
+    new: Table | None  # new data destined for this partition
+    major_inputs: int = 0  # number of (smallest) tables merged in a major
+    est_wa: float = 0.0
+
+
+@dataclasses.dataclass
+class CompactionConfig:
+    table_cap: int = 65536  # entries per table file (paper: 64 MB files)
+    t_max: int = 10  # table-count threshold T for minor compaction
+    wa_abort: float = 5.0  # abort when est. minor WA ratio exceeds this
+    carry_budget: float = 0.15  # <= 15 % of new data may stay buffered
+    split_ratio: float = 1.5  # major below this input/output ratio → split
+    split_m: int = 2  # tables per new partition in a split
+
+
+def plan_partition(p: Partition, new: Table, cfg: CompactionConfig) -> Plan:
+    if new.n == 0:
+        return Plan(kind="noop", partition=p, new=None)
+    n_new_tables = max(1, math.ceil(new.n / cfg.table_cap))
+    new_bytes = max(1, new.bytes())
+    # §4.2 Abort: WA of a minor = (new tables + rebuilt REMIX) / new data
+    est_minor_wa = (new_bytes + p.estimate_remix_bytes(new.n)) / new_bytes
+    if len(p.tables) + n_new_tables <= cfg.t_max:
+        return Plan(kind="minor", partition=p, new=new, est_wa=est_minor_wa)
+    # need a major (or split): pick input count with best input/output ratio
+    sizes = sorted(t.n for t in p.tables)
+    best_k, best_ratio = 1, 0.0
+    for k in range(1, len(sizes) + 1):
+        merged = sum(sizes[:k]) + new.n
+        n_out = max(1, math.ceil(merged / cfg.table_cap))
+        total_after = len(sizes) - k + n_out
+        if total_after > cfg.t_max and k < len(sizes):
+            continue  # must keep reducing table count
+        ratio = k / n_out
+        if ratio > best_ratio:
+            best_k, best_ratio = k, ratio
+    if best_ratio < cfg.split_ratio:
+        return Plan(kind="split", partition=p, new=new)
+    return Plan(kind="major", partition=p, new=new, major_inputs=best_k)
+
+
+def apply_abort_budget(plans: list[Plan], cfg: CompactionConfig) -> None:
+    """Abort the highest-WA minors while within the 15 % carry budget."""
+    total_new = sum(pl.new.n for pl in plans if pl.new is not None)
+    if total_new == 0:
+        return
+    budget = int(total_new * cfg.carry_budget)
+    minors = sorted(
+        (pl for pl in plans if pl.kind == "minor"),
+        key=lambda pl: -pl.est_wa,
+    )
+    for pl in minors:
+        if pl.est_wa <= cfg.wa_abort:
+            break
+        if pl.new.n <= budget:
+            budget -= pl.new.n
+            pl.kind = "abort"
+
+
+@dataclasses.dataclass
+class ExecResult:
+    bytes_written: int = 0
+    # copy-on-write output: the partition(s) replacing the input in the
+    # *next* Version. None only for noop/abort (input partition reused
+    # as-is). The input partition is never mutated — readers pinning the
+    # old Version keep a stable view.
+    new_partitions: list[Partition] | None = None
+    carried: Table | None = None  # aborted new data (stays in MemTable/WAL)
+    # merge-side GC accounting: input rows dropped because an excised
+    # span covered them / because their TTL had expired (store emits the
+    # ttl_expired_dropped counter from the latter)
+    rows_excised: int = 0
+    rows_expired: int = 0
+
+
+def _persist_tables(tables: list[Table], storage) -> None:
+    """Write freshly produced tables through the SSTable writer (io layer);
+    each gains a file path and (optionally) a CKB trailer."""
+    if storage is None:
+        return
+    from repro_torch.core import keys as CK
+
+    for t in tables:
+        name = storage.write_table(
+            CK.pack_u64(t.keys), t.vals, t.seq, t.tomb,
+            exp=t.exp if t.ttl_present() else None,
+        )
+        t.path = storage.table_path(name)
+
+
+def execute(plan: Plan, cfg: CompactionConfig, storage=None,
+            registry=None) -> ExecResult:
+    """Execute one partition's plan; with a ``registry``, per-kind plan
+    counters and an output-size histogram are recorded alongside the
+    returned :class:`ExecResult` (the store aggregates the rest)."""
+    res = _execute(plan, cfg, storage)
+    if registry is not None:
+        registry.counter("compaction_plans", kind=plan.kind).inc()
+        if res.bytes_written:
+            registry.histogram(
+                "compaction_output_bytes", kind="bytes"
+            ).observe(res.bytes_written)
+    return res
+
+
+def _execute(plan: Plan, cfg: CompactionConfig, storage=None) -> ExecResult:
+    p = plan.partition
+    if plan.kind in ("noop",):
+        return ExecResult()
+    if plan.kind == "abort":
+        return ExecResult(carried=plan.new)
+    if plan.kind == "minor":
+        outs = chunk_table(plan.new, cfg.table_cap)
+        _persist_tables(outs, storage)
+        written = sum(t.bytes() for t in outs)
+        # tables were only appended: the clone inherits the built REMIX
+        # so index() rebuilds incrementally; its size counts toward WA
+        p2 = p.clone_with_tables(list(p.tables) + outs, carry_built=True)
+        p2.index()
+        if storage is not None:
+            p2.persist_index(storage)
+        return ExecResult(
+            bytes_written=written + p2.remix_bytes, new_partitions=[p2]
+        )
+    if plan.kind == "major":
+        order = np.argsort([t.n for t in p.tables])
+        chosen = [p.tables[i] for i in order[: plan.major_inputs]]
+        keep = [p.tables[i] for i in order[plan.major_inputs :]]
+        # excised spans mask their covered input rows out of the merge
+        # (the outputs are then span-free); expired-TTL rows convert to
+        # tombstones, which must keep hiding older versions in ``keep``
+        st: dict = {}
+        merged = merge_tables(chosen + [plan.new], excised=p.excised,
+                              stats=st)
+        outs = chunk_table(merged, cfg.table_cap)
+        _persist_tables(outs, storage)
+        p2 = p.clone_with_tables(keep + outs)  # table set changed: scratch
+        p2.index()
+        if storage is not None:
+            p2.persist_index(storage)
+        written = sum(t.bytes() for t in outs)
+        return ExecResult(
+            bytes_written=written + p2.remix_bytes, new_partitions=[p2],
+            rows_excised=st.get("rows_excised", 0),
+            rows_expired=st.get("rows_expired", 0),
+        )
+    if plan.kind == "split":
+        # full merge (tombstones can be dropped: whole partition rewritten,
+        # so excised/expired rows and the tombstones themselves all go)
+        st = {}
+        merged = merge_tables(p.tables + [plan.new], drop_tombs=True,
+                              excised=p.excised, stats=st)
+        outs = chunk_table(merged, cfg.table_cap)
+        _persist_tables(outs, storage)
+        written = sum(t.bytes() for t in outs)
+        parts: list[Partition] = []
+        m = cfg.split_m
+        for i in range(0, max(1, len(outs)), m):
+            group = outs[i : i + m]
+            lo = p.lo if i == 0 else int(group[0].keys[0])
+            np_ = Partition(lo=lo, tables=list(group), d=p.d, device=p.device)
+            np_.index()
+            if storage is not None:
+                np_.persist_index(storage)
+            written += np_.remix_bytes
+            parts.append(np_)
+        if not parts:  # everything deleted
+            parts = [Partition(lo=p.lo, tables=[], d=p.d, device=p.device)]
+        return ExecResult(bytes_written=written, new_partitions=parts,
+                          rows_excised=st.get("rows_excised", 0),
+                          rows_expired=st.get("rows_expired", 0))
+    raise ValueError(plan.kind)

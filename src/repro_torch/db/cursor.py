@@ -1,0 +1,313 @@
+"""RemixCursor: the paper's cursor (§3.2 seek/peek/next/skip) over a
+snapshot-consistent merged view.
+
+One cursor unifies the store's three read paths behind a single ascending
+stream of live ``(key, value)`` entries:
+
+- the MemTable overlay (the snapshot's frozen entry dict, tombstones
+  hiding older table entries),
+- cold partitions (on-disk REMIX walk: one anchors search + bounded CKB
+  seeks at ``seek``, then pure selector-stream decodes per window —
+  :meth:`repro_torch.db.partition.Partition.cold_cursor_window`),
+- promoted partitions (REMIX on the partition's device: one ``seek``,
+  then comparison-free ``gather_view`` windows from the saved position).
+
+The defining property vs repeated ``scan(start, n)`` calls: a cursor
+seeks **once**. ``next``/``next_batch`` advance a persisted view
+position, so a long or streaming scan pays the anchors search and
+per-run seeks a single time instead of once per chunk. ``skip``
+counts live entries, draining windows without materializing values'
+consumers. Because the snapshot pins its Version, iteration is immune to
+concurrent flushes: a compaction publishing a new Version never changes
+what an open cursor returns.
+"""
+from __future__ import annotations
+
+import bisect
+
+import numpy as np
+import torch
+
+from repro_torch.core import keys as CK
+from repro_torch.db import clock
+from repro_torch.db.memtable import entry_dead
+from repro_torch.db.sharded import partition_spans, route_one
+from repro_torch.device import as_words, u32_np
+
+_MAX_WIDTH = 4096  # widening cap over tombstone/old-version runs
+
+
+class RemixCursor:
+    """Merged-view iterator over a :class:`repro_torch.db.version.Snapshot`."""
+
+    def __init__(self, snapshot, width: int = 64,
+                 owns_snapshot: bool = False, interrupt=None):
+        if width < 1:
+            raise ValueError("cursor width must be >= 1")
+        self.snap = snapshot
+        self.store = snapshot.store
+        self.base_width = int(width)
+        self.vw = self.store.cfg.vw
+        self._owns = owns_snapshot
+        # cooperative cancellation hook (op layer): called once per
+        # window pull; raising aborts the fill — a deadline-bounded scan
+        # stops mid-stream instead of draining the whole range
+        self._interrupt = interrupt
+        # buffered live entries, as (keys, vals) array chunks: windows
+        # with no interleaving overlay entries pass through zero-copy
+        self._chunks: list[tuple[np.ndarray, np.ndarray]] = []
+        self._buffered = 0
+        self._done = True
+        self._stream = None
+
+    # ---------------- positioning ----------------
+    def seek(self, key: int) -> "RemixCursor":
+        """Position at the lower bound of ``key`` in the merged view."""
+        self._start = int(key)
+        parts = self.snap.partitions
+        self._spans = partition_spans([p.lo for p in parts])
+        if self.snap.shared:
+            # the overlay is the live MemTable dict: materialize the key
+            # list under the writer lock so a concurrent put's dict
+            # resize can't tear the iteration
+            with self.store._state_lock:
+                self._okeys = sorted(self.snap.overlay)
+        else:
+            self._okeys = sorted(self.snap.overlay)
+        self._oi = bisect.bisect_left(self._okeys, self._start)
+        self._pi = route_one(parts, self._start)
+        self._first = True
+        self._stream = None
+        self._width = self.base_width
+        self._chunks = []
+        self._buffered = 0
+        self._done = False
+        return self
+
+    # ---------------- consumption ----------------
+    def peek(self):
+        """The next live entry ``(key, val)`` without advancing, or None."""
+        self._fill(1)
+        if not self._chunks:
+            return None
+        kk, vv = self._chunks[0]
+        return int(kk[0]), vv[0]
+
+    def next(self):
+        """Return the next live entry ``(key, val)`` and advance, or None
+        at end of view."""
+        item = self.peek()
+        if item is not None:
+            self._drop(1)
+        return item
+
+    def skip(self, n: int) -> int:
+        """Advance past ``n`` live entries; returns how many were skipped
+        (fewer only at end of view)."""
+        self._fill(n)
+        got = min(n, self._buffered)
+        self._drop(got)
+        return got
+
+    def next_batch(self, n: int) -> tuple[np.ndarray, np.ndarray]:
+        """The next ``n`` live entries as ``(keys (M,) u64, vals (M, VW))``
+        arrays, M <= n — the batched ``next`` that makes ``scan`` a thin
+        wrapper over a cursor."""
+        self._fill(n)
+        take_k: list[np.ndarray] = []
+        take_v: list[np.ndarray] = []
+        need = n
+        while need > 0 and self._chunks:
+            kk, vv = self._chunks[0]
+            if len(kk) <= need:
+                self._chunks.pop(0)
+            else:
+                self._chunks[0] = (kk[need:], vv[need:])
+                kk, vv = kk[:need], vv[:need]
+            take_k.append(kk)
+            take_v.append(vv)
+            need -= len(kk)
+            self._buffered -= len(kk)
+        if not take_k:
+            return (
+                np.zeros(0, np.uint64),
+                np.zeros((0, self.vw), np.uint32),
+            )
+        return np.concatenate(take_k), np.concatenate(take_v)
+
+    def _drop(self, n: int) -> None:
+        while n > 0 and self._chunks:
+            kk, vv = self._chunks[0]
+            if len(kk) <= n:
+                self._chunks.pop(0)
+                n -= len(kk)
+                self._buffered -= len(kk)
+            else:
+                self._chunks[0] = (kk[n:], vv[n:])
+                self._buffered -= n
+                n = 0
+
+    # ---------------- lifecycle ----------------
+    def close(self) -> None:
+        """Release the snapshot if this cursor owns it (see
+        ``RemixDB.cursor``); cursors over caller-managed snapshots leave
+        them open."""
+        if self._owns:
+            self.snap.close()
+
+    def __enter__(self) -> "RemixCursor":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()
+
+    def __iter__(self):
+        while True:
+            item = self.next()
+            if item is None:
+                return
+            yield item
+
+    # ---------------- internals ----------------
+    def _open_stream(self):
+        """Start the table-entry stream of the current partition: one
+        seek (cold: anchors + bounded CKB; promoted: device seek),
+        after which every window is a pure position advance."""
+        p = self.snap.partitions[self._pi]
+        lo, _ = self._spans[self._pi]
+        start = max(self._start, lo) if self._first else lo
+        self._first = False
+        self._width = self.base_width
+        if self.store._cold_ok(p):
+            self._stream = ("cold", p, p.cold_cursor_seek(start))
+            return
+        remix, runset = p.index()
+        qk = as_words(CK.pack_u64(np.array([start], np.uint64)), p.device)
+        pos = int(
+            self.store._query_mod().seek(
+                remix, runset, qk, **self.store._qkw()
+            )[0]
+        )
+        self._stream = ["dev", p, remix, runset, pos]
+
+    def _next_window(self):
+        """One window of live table entries from the current partition.
+        Returns (keys u64, vals, partition_done)."""
+        _, hi = self._spans[self._pi]
+        if self._stream[0] == "cold":
+            _, p, state = self._stream
+            kk, vv, more = p.cold_cursor_window(
+                state, self._width,
+                prefetch_depth=self.store.cfg.prefetch_depth,
+            )
+        else:
+            _, p, remix, runset, pos = self._stream
+            keys, vals, valid = self.store._query_mod().gather_view(
+                remix, runset,
+                torch.tensor([pos], dtype=torch.int32, device=p.device),
+                self._width,
+            )
+            v0 = valid[0].cpu().numpy()
+            kk = CK.unpack_u64(u32_np(keys[0])[v0])
+            vv = u32_np(vals[0])[v0]
+            more = pos + self._width < remix.n_slots
+            self._stream[4] = pos + self._width
+        # clip to the partition's key range; entries at/after the next
+        # partition's lower bound mean this partition is drained
+        cut = int(np.searchsorted(kk, np.uint64(min(hi, (1 << 64) - 1)),
+                                  side="right" if hi >= 1 << 64 else "left"))
+        clipped = cut < len(kk)
+        kk, vv = kk[:cut], vv[:cut]
+        # snapshot-visible range tombstones hide any remaining table
+        # entries they cover (partial-coverage spans and promoted-path
+        # windows; fully-covered cold spans were skipped structurally)
+        if self.snap.ranges and len(kk):
+            m = np.ones(len(kk), bool)
+            for rlo, rhi, _ in self.snap.ranges:
+                m &= ~((kk >= rlo) & (kk < rhi))
+            kk, vv = kk[m], vv[m]
+        # adaptive widening, two cases sharing one rule: an all-invalid
+        # window (tombstone/old-version run) must grow so long dead runs
+        # cost O(log) decodes, and a productive stream grows as read-ahead
+        # — the first window stays small (seek latency), sustained
+        # consumption amortizes per-window overhead over ever larger
+        # decodes. Re-seeking scans can't do this: read-ahead is only
+        # free when the position survives the call.
+        self._width = min(self._width * 2, _MAX_WIDTH)
+        return kk, vv, clipped or not more
+
+    def _push(self, kk: np.ndarray, vv: np.ndarray) -> None:
+        if len(kk):
+            self._chunks.append((kk, vv))
+            self._buffered += len(kk)
+
+    def _merge_emit(self, kk: np.ndarray, vv: np.ndarray,
+                    bound: int) -> None:
+        """Merge one table window with the overlay slice up to ``bound``
+        (inclusive). Overlay wins ties; tombstones drop both. Appends
+        live entries, ascending, to the buffer — the common case (no
+        overlay entry in range) passes the window through untouched."""
+        okeys, overlay = self._okeys, self.snap.overlay
+        now = clock.now()
+        oend = self._oi
+        while oend < len(okeys) and okeys[oend] <= bound:
+            oend += 1
+        if oend == self._oi:  # fast path: pure table window
+            self._push(kk, vv)
+            return
+        ti = 0
+        out_k: list[int] = []
+        out_v: list[np.ndarray] = []
+        while True:
+            okey = okeys[self._oi] if self._oi < oend else None
+            tkey = int(kk[ti]) if ti < len(kk) else None
+            if okey is None and tkey is None:
+                break
+            if tkey is None or (okey is not None and okey <= tkey):
+                if okey == tkey:
+                    ti += 1  # overlay shadows the table entry
+                self._oi += 1
+                e = overlay[okey]
+                if not entry_dead(e, now):
+                    out_k.append(okey)
+                    out_v.append(np.asarray(e.val, np.uint32))
+            else:
+                out_k.append(tkey)
+                out_v.append(vv[ti])
+                ti += 1
+        if out_k:
+            self._push(
+                np.array(out_k, np.uint64),
+                np.stack(out_v).astype(np.uint32, copy=False),
+            )
+
+    def _fill(self, n: int) -> None:
+        """Pull windows until ``n`` live entries are buffered or the view
+        is exhausted."""
+        parts = self.snap.partitions
+        while self._buffered < n and not self._done:
+            if self._interrupt is not None:
+                self._interrupt()
+            if self._pi >= len(parts):
+                # every partition drained: flush the overlay tail
+                self._merge_emit(
+                    np.zeros(0, np.uint64),
+                    np.zeros((0, self.vw), np.uint32),
+                    (1 << 64) - 1,
+                )
+                self._done = True
+                return
+            if self._stream is None:
+                self._open_stream()
+            kk, vv, pdone = self._next_window()
+            if pdone:
+                # partition exhausted: overlay entries below the next
+                # partition's range can all be emitted
+                bound = self._spans[self._pi][1] - 1
+                self._pi += 1
+                self._stream = None
+            elif len(kk):
+                bound = int(kk[-1])
+            else:
+                continue  # dead window mid-partition: nothing emittable
+            self._merge_emit(kk, vv, bound)

@@ -1,0 +1,189 @@
+"""Background integrity scrub over the committed store state.
+
+The scrubber walks a pinned Version's files **at rest** — every table
+checksum granule (via :meth:`repro_torch.io.sstable.SSTableReader.check_blocks`,
+which bypasses the block cache so the serving working set is never
+evicted or polluted), every REMIX payload CRC + structural length
+(:func:`repro_torch.io.remix_io.check_remix`), and CURRENT/manifest agreement
+(:meth:`repro_torch.io.manifest.Manifest.verify`) — under a byte-budget rate
+limit, and reports findings as ``(file, section, blocks)`` coordinates.
+
+Repair itself lives in :meth:`repro_torch.db.store.RemixDB.scrub`: a corrupt
+REMIX is rebuilt from the tables' Compressed Keys Blocks (the §3.4
+redundancy — zero value bytes read) and committed as a new manifest
+version; a table with unrecoverable granules is dropped from the
+manifest with its key span recorded, so reads over that span degrade to
+a typed :class:`repro_torch.io.faults.UnavailableSpanError` instead of
+silently missing rows. :func:`rebuild_remix` is the shared rebuild
+primitive (also exercised directly by the fault-matrix tests).
+"""
+from __future__ import annotations
+
+import dataclasses
+import os
+import time
+
+import numpy as np
+
+from repro_torch.io.faults import CorruptionError
+
+
+@dataclasses.dataclass
+class Finding:
+    """One scrub detection, pinned to file coordinates.
+
+    ``kind`` routes the repair: ``"table"`` (quarantine + degrade),
+    ``"remix"`` (rebuild from CKBs), ``"manifest"`` (surfaced only —
+    the manifest is the root of trust, nothing to rebuild it from).
+    """
+
+    kind: str  # "table" | "remix" | "manifest"
+    file: str
+    section: str | None = None
+    blocks: tuple = ()
+    detail: str = "checksum mismatch"
+
+    def to_dict(self) -> dict:
+        return dict(
+            kind=self.kind,
+            file=os.path.basename(self.file),
+            section=self.section,
+            blocks=list(self.blocks),
+            detail=self.detail,
+        )
+
+
+@dataclasses.dataclass
+class ScrubReport:
+    files_checked: int = 0
+    bytes_read: int = 0
+    findings: list = dataclasses.field(default_factory=list)
+    repaired: list = dataclasses.field(default_factory=list)
+    quarantined: list = dataclasses.field(default_factory=list)
+    duration_s: float = 0.0
+
+    @property
+    def clean(self) -> bool:
+        return not self.findings
+
+    def to_dict(self) -> dict:
+        return dict(
+            clean=self.clean,
+            files_checked=self.files_checked,
+            bytes_read=self.bytes_read,
+            findings=[f.to_dict() for f in self.findings],
+            repaired=list(self.repaired),
+            quarantined=list(self.quarantined),
+            duration_s=round(self.duration_s, 6),
+        )
+
+
+class RateLimiter:
+    """Byte-budget pacing for a background scrub pass.
+
+    Callable: feed it each verified chunk's size; it sleeps just enough
+    to keep the cumulative rate at ``bytes_per_sec`` (0 = unlimited, the
+    synchronous ``scrub(full=True)`` mode). Sleeps are capped at 1 s per
+    call so a stop request is never stalled behind one long nap.
+    """
+
+    def __init__(self, bytes_per_sec: int = 0):
+        self.rate = max(0, int(bytes_per_sec))
+        self._t0 = time.monotonic()
+        self._bytes = 0
+
+    def __call__(self, nbytes: int) -> None:
+        self._bytes += int(nbytes)
+        if self.rate <= 0:
+            return
+        due = self._t0 + self._bytes / self.rate
+        delay = due - time.monotonic()
+        if delay > 0:
+            time.sleep(min(delay, 1.0))
+
+
+def scrub_version(storage, partitions, limiter=None) -> ScrubReport:
+    """One at-rest integrity pass over a pinned partition list.
+
+    Verifies manifest/CURRENT agreement, then every lazy table handle's
+    checksum granules and every persisted REMIX, re-reading raw file
+    bytes (cache-bypassing) through each handle's own ``IOContext`` so
+    injected faults and retry budgets apply exactly as on the read path.
+    Pure detection: mutates nothing, returns a :class:`ScrubReport`.
+    """
+    from repro_torch.io.remix_io import check_remix
+
+    rep = ScrubReport()
+    t0 = time.monotonic()
+    limiter = limiter or (lambda n: None)
+
+    def on_block(n: int) -> None:
+        rep.bytes_read += int(n)
+        limiter(n)
+
+    try:
+        storage.manifest.verify()
+    except CorruptionError as e:
+        rep.findings.append(Finding(
+            kind="manifest", file=e.file, section=e.section,
+            detail=e.detail,
+        ))
+    rep.files_checked += 1  # the manifest/CURRENT pair counts as one
+    for p in partitions:
+        for t in p.tables:
+            if t.path is None:
+                continue  # in-memory table: no at-rest bytes to verify
+            rep.files_checked += 1
+            try:
+                rd = t._rd()
+                bad = rd.check_blocks(on_block=on_block)
+            except CorruptionError as e:
+                rep.findings.append(Finding(
+                    kind="table", file=t.path, section=e.section,
+                    blocks=() if e.block is None else (e.block,),
+                    detail=e.detail,
+                ))
+                continue
+            if bad:
+                rep.findings.append(Finding(
+                    kind="table", file=t.path,
+                    section=rd.block_section(bad[0]), blocks=tuple(bad),
+                ))
+        if p.remix_name:
+            rep.files_checked += 1
+            path = storage.remix_path(p.remix_name)
+            try:
+                on_block(check_remix(path, io=storage.io))
+            except CorruptionError as e:
+                rep.findings.append(Finding(
+                    kind="remix", file=path, section="remix",
+                    detail=e.detail,
+                ))
+    rep.duration_s = time.monotonic() - t0
+    return rep
+
+
+def rebuild_remix(tables, d: int = 32):
+    """Rebuild a partition's REMIX from its tables' key metadata alone.
+
+    The §3.4 redundancy argument made executable: the index is a pure
+    function of the runs' (keys, seq) columns, both of which survive in
+    the table files (keys preferentially from the prefix-compressed CKB
+    trailer), so a corrupt/lost REMIX file is never data loss. No value
+    bytes are read; the returned :class:`repro_torch.core.remix.Remix` lies
+    in host memory, like a recovered one: servable cold, moved to the
+    partition's device on its first device build, and byte-compatible with
+    ``dump_remix``.
+    """
+    from repro_torch.core.remix import build_remix
+    from repro_torch.core.runs import make_run
+
+    runs = []
+    for t in tables:
+        kw = np.asarray(t.key_words(), np.uint32)  # prefers the CKB
+        runs.append(make_run(
+            kw, None, seq=np.asarray(t.seq), tomb=np.asarray(t.tomb),
+            vw=t.vw, sort=False, device="cpu",
+        ))
+    remix, _ = build_remix(runs, d=max(int(d), len(runs) or 1))
+    return remix

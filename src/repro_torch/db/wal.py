@@ -1,0 +1,497 @@
+"""Write-ahead log with *virtual logs* (paper §4.3).
+
+One physical file holds a sequence of 4 KB blocks. A *virtual log* is a
+mapping table (list of physical block ids + expected 1-bit epoch + validity
+bitmap). Garbage collection builds a new virtual log in the same file:
+blocks with >= 1/4 of their data still valid are remapped as-is (their
+bitmap masks dead records); sparser blocks are freed and their survivors
+rewritten. Each block's first byte carries the 1-bit epoch that flips on
+every physical overwrite, so recovery can distinguish remapped-valid blocks
+from stale *unwritten* blocks, exactly as in the paper.
+
+Record format inside a block (fixed width): key u64 | seq u32 | flags u32 |
+exp u32 | VW*u32 value. Records never span blocks. ``flags`` bit 0 is the
+point-tombstone bit; bit 1 marks a *range tombstone* (DeleteRange): key
+holds the inclusive lower bound, the first two value words pack the
+exclusive upper bound (lo 32 bits then hi 32 bits), and ``exp`` is unused.
+``exp`` on ordinary records is the absolute TTL expiry in unix seconds
+(0 = no TTL).
+
+Durability is a policy knob (``sync_policy``), mirroring the usual LSM
+WAL options:
+
+- ``"block"`` (default): group commit — records buffer in memory until a
+  4 KB block fills, and the block write is fsynced immediately. A crash
+  loses at most one partial block of un-flushed appends; an explicit
+  ``sync()`` (or ``close()``) flushes and fsyncs the tail.
+- ``"always"``: every append is flushed and fsynced before returning —
+  per-put durability at the cost of one (possibly near-empty) block per
+  record until GC repacks them.
+- ``"none"``: blocks are written when full but only fsynced by an
+  explicit ``sync()``/``close()`` — fastest, loses the OS write-back
+  window on power failure.
+"""
+from __future__ import annotations
+
+import dataclasses
+import io
+import json
+import os
+import struct
+
+import numpy as np
+
+from repro_torch.io.checksum import crc32c
+from repro_torch.io.faults import NULL_IO, CorruptionError
+from repro_torch.obs import metrics as _metrics
+
+BLOCK = 4096
+# 1-bit epoch in byte 0 + u16 record count + u32 CRC32C of the record
+# payload (bytes HDR..HDR+n*rec_size). A CRC of 0 marks a legacy block
+# written before checksums existed and skips verification.
+HDR = 8
+_HDR_STRUCT = struct.Struct("<BxHI")
+
+FLAG_TOMB = 1  # record is a point tombstone
+FLAG_RANGE = 2  # record is a range tombstone (key=lo, val[0:2]=hi)
+
+
+def _rec_size(vw: int) -> int:
+    return 8 + 4 + 4 + 4 + 4 * vw
+
+
+def pack_range_hi(hi: int, vw: int) -> np.ndarray:
+    """Encode a range tombstone's exclusive upper bound in the value words."""
+    if vw < 2:
+        raise ValueError("range tombstones need vw >= 2")
+    v = np.zeros(vw, np.uint32)
+    v[0] = hi & 0xFFFFFFFF
+    v[1] = (hi >> 32) & 0xFFFFFFFF
+    return v
+
+
+def unpack_range_hi(val: np.ndarray) -> int:
+    return int(val[0]) | (int(val[1]) << 32)
+
+
+@dataclasses.dataclass
+class BlockMap:
+    """Mapping-table entry for one block of a virtual log."""
+
+    phys: int  # physical block index in the file
+    epoch: int  # expected 1-bit value (paper: inverted for unwritten blocks)
+    written: bool  # False => 'unwritten' placeholder slot
+    bitmap: int  # validity bitmap over records (bit i = record i live)
+    # highest live seq in the block, None when unknown (e.g. restored
+    # from an old checkpoint) — lets read_from() skip whole blocks at or
+    # below a replication checkpoint without reading them
+    max_seq: int | None = None
+
+
+class VirtualLog:
+    """The active virtual log: mapping table + append cursor."""
+
+    def __init__(self, timestamp: int):
+        self.timestamp = timestamp
+        self.blocks: list[BlockMap] = []
+
+
+class WAL:
+    SYNC_POLICIES = ("none", "block", "always")
+
+    def __init__(
+        self,
+        path: str,
+        vw: int = 2,
+        capacity_blocks: int = 1 << 20,
+        sync_policy: str = "block",
+        registry: "_metrics.MetricsRegistry | None" = None,
+        ioctx=None,
+    ):
+        if sync_policy not in self.SYNC_POLICIES:
+            raise ValueError(
+                f"sync_policy must be one of {self.SYNC_POLICIES}, "
+                f"got {sync_policy!r}"
+            )
+        self.path = path
+        self.vw = vw
+        self.ioctx = ioctx or NULL_IO
+        self.sync_policy = sync_policy
+        self.rec_size = _rec_size(vw)
+        self.recs_per_block = (BLOCK - HDR) // self.rec_size
+        self.capacity_blocks = capacity_blocks
+        self.epoch_bits: dict[int, int] = {}  # phys block -> current 1-bit
+        self.free: list[int] = []
+        # blocks freed by a GC whose mapping table is not yet durably
+        # committed: reusing them would corrupt the checkpointed virtual
+        # log, so they are held here until release_quarantine()
+        self.quarantine: list[int] = []
+        self.next_phys = 0
+        self.vlog = VirtualLog(timestamp=1)
+        self._pending: list[tuple[int, int, int, int, np.ndarray]] = []
+        self._dirty = False  # blocks written since the last fsync
+        # physical write accounting (for WA ratios) — registry-backed;
+        # the legacy ``wal.bytes_written`` attribute reads it back out
+        reg = registry if registry is not None else _metrics.MetricsRegistry()
+        self._c_bytes_written = reg.counter("wal_bytes_written")
+        self._c_blocks_flushed = reg.counter("wal_blocks_flushed")
+        self._c_fsyncs = reg.counter("wal_fsyncs")
+        self._c_gc_rounds = reg.counter("wal_gc_rounds")
+        reg.gauge("wal_used_blocks", fn=self.used_blocks)
+        reg.gauge("wal_free_blocks", fn=lambda: len(self.free))
+        # highest sequence number ever appended — the durable sequence
+        # horizon. Checkpointed with the mapping table and advanced by
+        # tail recovery, so a reopened store never reissues a seq that a
+        # (possibly GC-masked) record already consumed; Versions adopt it
+        # as their seq_horizon floor.
+        self.max_seq = 0
+        if not os.path.exists(path):
+            with open(path, "wb"):
+                pass
+
+    @property
+    def bytes_written(self) -> int:
+        return self._c_bytes_written.value
+
+    # ---------- append path ----------
+    def append(self, key: int, seq: int, tomb: bool, val: np.ndarray,
+               exp: int = 0, flags: int | None = None):
+        fl = (FLAG_TOMB if tomb else 0) if flags is None else flags
+        self._pending.append(
+            (key, seq, fl, int(exp), np.asarray(val, np.uint32))
+        )
+        self.max_seq = max(self.max_seq, int(seq))
+        if self.sync_policy == "always":
+            self._flush_pending()
+            self._fsync()
+        elif len(self._pending) >= self.recs_per_block:
+            self._flush_pending()
+            if self.sync_policy == "block":
+                self._fsync()
+
+    def append_range(self, lo: int, hi: int, seq: int):
+        """Durably record a DeleteRange [lo, hi) at sequence ``seq``."""
+        self.append(lo, seq, False, pack_range_hi(hi, self.vw),
+                    flags=FLAG_RANGE)
+
+    def append_batch(self, keys, seqs, tombs, vals, exps=None):
+        if exps is None:
+            exps = (0,) * len(keys)
+        for k, s, t, v, e in zip(keys, seqs, tombs, vals, exps):
+            self._pending.append(
+                (int(k), int(s), FLAG_TOMB if t else 0, int(e), v)
+            )
+            self.max_seq = max(self.max_seq, int(s))
+        flushed = False
+        while len(self._pending) >= self.recs_per_block:
+            self._flush_pending()
+            flushed = True
+        if self.sync_policy == "always":
+            self._flush_pending()
+            flushed = True
+        if flushed and self.sync_policy in ("block", "always"):
+            self._fsync()
+
+    def _alloc_block(self) -> int:
+        if self.free:
+            return self.free.pop()
+        phys = self.next_phys
+        self.next_phys += 1
+        if phys >= self.capacity_blocks:
+            raise RuntimeError("WAL capacity exceeded (4 GB budget, §4.3)")
+        return phys
+
+    def _flush_pending(self):
+        if not self._pending:
+            return
+        n = min(len(self._pending), self.recs_per_block)
+        recs, self._pending = self._pending[:n], self._pending[n:]
+        phys = self._alloc_block()
+        epoch = self.epoch_bits.get(phys, 0) ^ 1  # flips on every overwrite
+        self.epoch_bits[phys] = epoch
+        buf = io.BytesIO()
+        for k, s, fl, e, v in recs:
+            buf.write(struct.pack("<QIII", k, s, fl, e))
+            buf.write(np.asarray(v, np.uint32).tobytes())
+        payload = buf.getvalue()
+        data = (_HDR_STRUCT.pack(epoch, n, crc32c(payload)) + payload).ljust(
+            BLOCK, b"\0"
+        )
+        data = self.ioctx.mutate_write(self.path, data)
+        with open(self.path, "r+b") as f:
+            f.seek(phys * BLOCK)
+            f.write(data)
+        self._dirty = True
+        self._c_bytes_written.inc(BLOCK)
+        self._c_blocks_flushed.inc()
+        self.vlog.blocks.append(
+            BlockMap(phys=phys, epoch=epoch, written=True,
+                     bitmap=(1 << n) - 1,
+                     max_seq=max(int(s) for _, s, _, _, _ in recs))
+        )
+
+    def _fsync(self):
+        """fsync the log file if blocks were written since the last one."""
+        if self._dirty:
+            with open(self.path, "rb") as f:
+                self.ioctx.check_fsync(self.path)
+                os.fsync(f.fileno())
+            self._dirty = False
+            self._c_fsyncs.inc()
+
+    def sync(self):
+        """Flush buffered records to blocks and fsync them to disk: after
+        sync() returns, everything appended so far survives power loss."""
+        while self._pending:
+            self._flush_pending()
+        self._fsync()
+
+    # ---------- read / recovery path ----------
+    def _read_block(self, phys: int, strict: bool = True):
+        """Read + verify one physical block (retried on transient faults).
+
+        A failed payload CRC means the block's bytes are not what was
+        durably acknowledged: with ``strict`` that raises a typed
+        :class:`CorruptionError` (the block is part of the committed
+        mapping — its loss must be surfaced, never silently replayed);
+        tail recovery passes ``strict=False`` to treat a torn candidate
+        block as never-written instead (returns ``(None, [])``).
+        """
+        ioctx = self.ioctx
+
+        def attempt() -> bytes:
+            with open(self.path, "rb") as f:
+                ioctx.check_read(self.path)
+                f.seek(phys * BLOCK)
+                return ioctx.mutate_read(
+                    self.path, phys * BLOCK, f.read(BLOCK)
+                )
+
+        data = ioctx.run("wal", attempt)
+        try:
+            epoch, n, crc = _HDR_STRUCT.unpack_from(data, 0)
+        except struct.error:
+            if strict:
+                raise CorruptionError(
+                    self.path, "wal", phys, detail="truncated block"
+                )
+            return None, []
+        bad = (
+            n > self.recs_per_block
+            or len(data) < HDR + n * self.rec_size
+            or (crc != 0 and crc32c(data[HDR:HDR + n * self.rec_size]) != crc)
+        )
+        if bad:
+            if strict:
+                raise CorruptionError(self.path, "wal", phys)
+            return None, []
+        recs = []
+        off = HDR
+        for _ in range(n):
+            k, s, fl, e = struct.unpack_from("<QIII", data, off)
+            v = np.frombuffer(
+                data, np.uint32, count=self.vw, offset=off + 20
+            ).copy()
+            recs.append((k, s, fl, e, v))
+            off += self.rec_size
+        return epoch, recs
+
+    def replay(self):
+        """Yield all live records ``(key, seq, flags, exp, val)`` of the
+        current virtual log, in log order."""
+        self.sync()
+        for bm in self.vlog.blocks:
+            if not bm.written:
+                continue
+            epoch, recs = self._read_block(bm.phys)
+            if epoch != bm.epoch:  # stale block: treat as unwritten (§4.3)
+                continue
+            for i, rec in enumerate(recs):
+                if bm.bitmap >> i & 1:
+                    yield rec
+
+    def read_from(self, seq: int):
+        """Tail-follow: yield live records with sequence > ``seq``.
+
+        The replication catch-up primitive — a follower that has applied
+        everything up to a checkpoint ``seq`` replays only what came
+        after. Blocks whose tracked ``max_seq`` is at or below the floor
+        are skipped without touching disk (no full-epoch rescan); blocks
+        restored from an old checkpoint have an unknown ``max_seq`` and
+        are read once, after which the bound is cached on the mapping
+        entry. Callers must serialize against gc() (the store's write
+        lock does this — see ``RemixDB.replication_snapshot``).
+        """
+        self.sync()
+        floor = int(seq)
+        for bm in self.vlog.blocks:
+            if not bm.written:
+                continue
+            if bm.max_seq is not None and bm.max_seq <= floor:
+                continue
+            epoch, recs = self._read_block(bm.phys)
+            if epoch != bm.epoch:
+                continue
+            if bm.max_seq is None:
+                live_seqs = [
+                    int(s) for i, (_, s, _, _, _) in enumerate(recs)
+                    if bm.bitmap >> i & 1
+                ]
+                bm.max_seq = max(live_seqs, default=0)
+                if bm.max_seq <= floor:
+                    continue
+            for i, rec in enumerate(recs):
+                if bm.bitmap >> i & 1 and int(rec[1]) > floor:
+                    yield rec
+
+    # ---------- garbage collection ----------
+    def gc(self, live_keys: set[int], defer_free: bool = False,
+           live_range_seqs: set[int] | None = None):
+        """Build a new virtual log keeping only records of ``live_keys``
+        (plus range tombstones whose seq is in ``live_range_seqs`` — ranges
+        already committed to the manifest as excised spans are droppable).
+
+        Blocks with >= 1/4 valid records are remapped with a masking bitmap;
+        others are freed and their survivors rewritten (batched re-append).
+
+        With ``defer_free`` the freed blocks are quarantined instead of
+        returned to the free list: until the new mapping table is durably
+        committed, the previous checkpoint still references them, and a
+        crash between GC and commit must find their contents intact. Call
+        :meth:`release_quarantine` after the commit.
+        """
+        self.sync()
+        self._c_gc_rounds.inc()
+        ranges = live_range_seqs if live_range_seqs is not None else set()
+        new = VirtualLog(timestamp=self.vlog.timestamp + 1)
+        rewrite: list[tuple[int, int, int, int, np.ndarray]] = []
+        freed = []
+
+        def _alive(k, s, fl):
+            if fl & FLAG_RANGE:
+                return s in ranges
+            return k in live_keys
+
+        for bm in self.vlog.blocks:
+            if not bm.written:
+                continue
+            epoch, recs = self._read_block(bm.phys)
+            if epoch != bm.epoch:
+                continue
+            live = [
+                i
+                for i, (k, s, fl, e, v) in enumerate(recs)
+                if (bm.bitmap >> i & 1) and _alive(k, s, fl)
+            ]
+            if len(recs) and len(live) * 4 >= len(recs):
+                bitmap = 0
+                for i in live:
+                    bitmap |= 1 << i
+                new.blocks.append(
+                    BlockMap(phys=bm.phys, epoch=bm.epoch, written=True,
+                             bitmap=bitmap,
+                             max_seq=max(int(recs[i][1]) for i in live))
+                )
+            else:
+                for i in live:
+                    rewrite.append(recs[i])
+                freed.append(bm.phys)
+                # record as unwritten in the new mapping table with the
+                # *inverted* epoch so a scan detects it as not-yet-written
+                new.blocks.append(
+                    BlockMap(
+                        phys=bm.phys,
+                        epoch=self.epoch_bits.get(bm.phys, 0) ^ 1,
+                        written=False,
+                        bitmap=0,
+                    )
+                )
+        self.vlog = new
+        (self.quarantine if defer_free else self.free).extend(freed)
+        self._pending.extend(rewrite)
+        self.sync()
+
+    def release_quarantine(self):
+        """Return quarantined blocks to the free list (mapping committed)."""
+        self.free.extend(self.quarantine)
+        self.quarantine = []
+
+    # ---------- checkpoint / crash recovery ----------
+    def save_state(self) -> dict:
+        """JSON-safe snapshot of the mapping table for a manifest commit.
+
+        Quarantined blocks are saved as free: the state being committed is
+        exactly what makes their reuse safe again.
+        """
+        self.sync()
+        return dict(
+            timestamp=self.vlog.timestamp,
+            max_seq=self.max_seq,
+            next_phys=self.next_phys,
+            free=sorted(self.free + self.quarantine),
+            epoch=[[k, v] for k, v in sorted(self.epoch_bits.items())],
+            blocks=[
+                [b.phys, b.epoch, int(b.written), b.bitmap,
+                 -1 if b.max_seq is None else b.max_seq]
+                for b in self.vlog.blocks
+            ],
+        )
+
+    def restore_state(self, state: dict):
+        """Adopt a checkpointed mapping table (inverse of save_state)."""
+        self.vlog = VirtualLog(timestamp=int(state["timestamp"]))
+        self.vlog.blocks = [
+            BlockMap(phys=b[0], epoch=b[1], written=bool(b[2]), bitmap=b[3],
+                     # 5th element (max seq, -1 = unknown) is absent in
+                     # checkpoints written before tail-follow existed
+                     max_seq=(None if len(b) < 5 or b[4] < 0 else int(b[4])))
+            for b in state["blocks"]
+        ]
+        self.next_phys = int(state["next_phys"])
+        self.max_seq = int(state.get("max_seq", 0))
+        self.free = [int(b) for b in state["free"]]
+        self.quarantine = []
+        self.epoch_bits = {int(k): int(v) for k, v in state["epoch"]}
+        self._pending = []
+
+    def recover_tail(self) -> int:
+        """Adopt blocks written after the checkpoint (epoch flip scan, §4.3).
+
+        Appends since the last commit went either to checkpoint-free blocks
+        or past ``next_phys``; in both cases the block's on-disk epoch bit
+        is the checkpointed expectation flipped. Returns #blocks adopted.
+        """
+        n_phys = os.path.getsize(self.path) // BLOCK
+        candidates = sorted(set(self.free) | set(range(self.next_phys, n_phys)))
+        adopted = 0
+        for phys in candidates:
+            if phys >= n_phys:
+                continue
+            epoch, recs = self._read_block(phys, strict=False)
+            if epoch != self.epoch_bits.get(phys, 0) ^ 1 or not recs:
+                continue
+            self.epoch_bits[phys] = epoch
+            self.max_seq = max(
+                self.max_seq, max(int(s) for _, s, _, _, _ in recs)
+            )
+            if phys in self.free:
+                self.free.remove(phys)
+            self.next_phys = max(self.next_phys, phys + 1)
+            self.vlog.blocks.append(
+                BlockMap(phys=phys, epoch=epoch, written=True,
+                         bitmap=(1 << len(recs)) - 1,
+                         max_seq=max(int(s) for _, s, _, _, _ in recs))
+            )
+            adopted += 1
+        return adopted
+
+    def manifest(self) -> str:
+        return json.dumps(
+            dict(
+                timestamp=self.vlog.timestamp,
+                blocks=[dataclasses.asdict(b) for b in self.vlog.blocks],
+            )
+        )
+
+    def used_blocks(self) -> int:
+        return sum(1 for b in self.vlog.blocks if b.written)

@@ -33,11 +33,18 @@ never alias a recycled ``id()``.
 A partition that fits neither tier is counted in ``device_fallback_total``
 and left to the caller, as the reference does.
 
+One lock serialises the manager's residency changes (upload, eviction,
+release): a store calls it from its submit workers and, through the
+release hook, from whichever thread unpins a Version. The reference has
+no lock, and two threads asking for the same partition there upload it
+twice and count its bytes twice.
+
 Host syncs are counted in the module-level ``SYNCS`` counter.
 """
 from __future__ import annotations
 
 import dataclasses
+import threading
 from collections import OrderedDict
 
 import numpy as np
@@ -165,6 +172,7 @@ class DeviceViewManager:
         self.device = resolve(device)
         self._views: "OrderedDict[int, DeviceView]" = OrderedDict()
         self._resident = 0
+        self._lock = threading.RLock()
         if registry is None:
             registry = MetricsRegistry(enabled=False)
         if events is None:
@@ -186,6 +194,10 @@ class DeviceViewManager:
     def view_for(self, p) -> DeviceView | None:
         """Resident view for partition ``p`` — uploading on first use —
         or None when no tier fits the budget (caller falls back)."""
+        with self._lock:
+            return self._view_for(p)
+
+    def _view_for(self, p) -> DeviceView | None:
         v = self._views.get(id(p))
         if v is not None:
             self._views.move_to_end(id(p))
@@ -233,12 +245,14 @@ class DeviceViewManager:
     def retain(self, live_ids: set) -> None:
         """VersionSet release hook: drop views whose partition left every
         live Version (the device-side leg of the pin lifecycle)."""
-        for key in [k for k in self._views if k not in live_ids]:
-            self._drop(self._views.pop(key), "version_release")
+        with self._lock:
+            for key in [k for k in self._views if k not in live_ids]:
+                self._drop(self._views.pop(key), "version_release")
 
     def clear(self) -> None:
-        for key in list(self._views):
-            self._drop(self._views.pop(key), "clear")
+        with self._lock:
+            for key in list(self._views):
+                self._drop(self._views.pop(key), "clear")
 
     # ---- batched execution ----
     def _queries(self, keys_u64: np.ndarray) -> torch.Tensor:

@@ -196,3 +196,76 @@ def test_index_tier_on_card_matches_cpu(card, tmp_path):
         np.testing.assert_array_equal(ka, kb)
         np.testing.assert_array_equal(xa, xb)
         np.testing.assert_array_equal(ka, kc)
+
+
+def test_store_on_card_matches_cpu(card, tmp_path):
+    """A small RemixDB on the card (``device_path="auto"``: device views)
+    and one on the CPU take the same op stream and answer alike; the card
+    store reads through its views."""
+    from repro_torch.db import clock
+    from repro_torch.db.compaction import CompactionConfig
+    from repro_torch.db.store import RemixDB, RemixDBConfig
+
+    clock.set_source(lambda: 1_000_000.0)
+    try:
+        stores = []
+        for dev in ("cpu", card):
+            cfg = RemixDBConfig(vw=4, memtable_entries=2048, device=str(dev),
+                                compaction=CompactionConfig(table_cap=1024, t_max=4))
+            stores.append(RemixDB.open(str(tmp_path / str(dev)), cfg))
+        rng = np.random.default_rng(9)
+        for _ in range(12):
+            keys = rng.integers(0, 1 << 30, 1500).astype(np.uint64)
+            vals = rng.integers(0, 2**32, (1500, 4), dtype=np.uint64).astype(np.uint32)
+            dels = rng.choice(keys, 20)
+            for db in stores:
+                db.put_batch(keys, vals, ttl=None)
+                for k in dels.tolist():
+                    db.delete(k)
+        for db in stores:
+            db.delete_range(1 << 28, 1 << 29)
+            db.flush()
+        cpu, gpu = stores
+        assert gpu.device_views is not None and cpu.device_views is None
+        q = rng.integers(0, 1 << 30, 4096).astype(np.uint64)
+        fa, va = cpu.get_batch(q)
+        fb, vb = gpu.get_batch(q)
+        np.testing.assert_array_equal(fa, fb)
+        np.testing.assert_array_equal(va[fa], vb[fb])
+        starts = np.sort(rng.integers(0, 1 << 30, 64)).astype(np.uint64)
+        ka, ma = cpu.scan_batch(starts, 50)
+        kb, mb = gpu.scan_batch(starts, 50)
+        np.testing.assert_array_equal(ma, mb)
+        np.testing.assert_array_equal(ka[ma], kb[mb])
+        for s in starts[:4].tolist():
+            for x, y in zip(cpu.scan(s, 30), gpu.scan(s, 30)):
+                np.testing.assert_array_equal(x, y)
+        assert len(gpu.device_views) > 0
+        assert gpu.registry.counter("device_batches").value > 0
+        for db in stores:
+            db.close()
+        # reopened: REMIX files recovered into host memory, then a flush
+        # whose compaction extends them and moves them to the card
+        stores = [RemixDB.open(str(tmp_path / str(dev)), RemixDBConfig(
+            vw=4, memtable_entries=2048, device=str(dev),
+            compaction=CompactionConfig(table_cap=1024, t_max=4)))
+            for dev in ("cpu", card)]
+        keys = rng.integers(0, 1 << 30, 1500).astype(np.uint64)
+        vals = rng.integers(0, 2**32, (1500, 4), dtype=np.uint64).astype(np.uint32)
+        for db in stores:
+            db.put_batch(keys, vals)
+            db.flush()
+        cpu, gpu = stores
+        assert gpu.partitions[0].device.type == "cuda"
+        q = np.concatenate([q, keys[:512]])
+        fa, va = cpu.get_batch(q)
+        fb, vb = gpu.get_batch(q)
+        np.testing.assert_array_equal(fa, fb)
+        np.testing.assert_array_equal(va[fa], vb[fb])
+        ka, ma = cpu.scan_batch(starts, 50)
+        kb, mb = gpu.scan_batch(starts, 50)
+        np.testing.assert_array_equal(ka[ma], kb[mb])
+        for db in stores:
+            db.close()
+    finally:
+        clock.reset()

@@ -64,6 +64,7 @@ def _entry_points():
     from repro_torch.core.remix import remix_from_arrays, remix_from_order
     from repro_torch.core.runs import make_run, runset_from_arrays
     from repro_torch.db.partition import Partition
+    from repro_torch.db.store import RemixDB
     from repro_torch.device import resolve
     from repro_torch.kernels.device_view import DeviceViewManager
 
@@ -73,6 +74,7 @@ def _entry_points():
         "resolve": lambda: resolve(),
         "DeviceViewManager": lambda: DeviceViewManager(1 << 20),
         "Partition": lambda: Partition(0, []),
+        "RemixDB": lambda: RemixDB(),
         "make_run": lambda: make_run(np.arange(4, dtype=np.uint64)),
         "remix_from_arrays": lambda: remix_from_arrays(k, one[:, None], np.zeros(8, np.uint8), 1, 8),
         "runset_from_arrays": lambda: runset_from_arrays(k[None], k[None], one[None], one[None] > 0, one),
@@ -95,6 +97,11 @@ def test_entry_points_run_on_the_cpu_when_asked():
     assert make_run(np.arange(4, dtype=np.uint64), device="cpu").keys.device.type == "cpu"
     assert Partition(0, [], device="cpu").device.type == "cpu"
     assert DeviceViewManager(1 << 20, device="cpu").device.type == "cpu"
+    from repro_torch.db.store import RemixDB, RemixDBConfig
+
+    db = RemixDB(RemixDBConfig(device="cpu"))
+    assert db.device.type == "cpu" and db.device_views is None
+    assert db.partitions[0].device.type == "cpu"
 
 
 def test_file_backed_table_answers_from_the_header(tmp_path):
