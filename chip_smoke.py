@@ -67,6 +67,25 @@ Phases, each fatal on failure:
    kernels against their plain versions bit for bit on that stage's own
    operands (the views, or each partition's ``p.index()`` with the
    store's padded queries and the cursor's one-key seek), and timed.
+7. fleet — the port's ``Cluster``: 3 range shards (lows 0, 2^40/3,
+   2·2^40/3), each a ``RemixDB`` with phase 6's config on the card, one
+   shared 64 MiB block cache and 2 submit workers, in a temporary
+   directory. (1) 2^21 keys loaded through ``Cluster.submit`` (as phase
+   6, without TTLs), flushed; (2) quiesced fleet reads against the numpy
+   oracle (gets of 256 and 65,536 keys; 256 Seek+Next50 scans, some
+   draining into the next shard), three first/warm pairs, syncs per
+   touched partition under ``error``, a profiled 256-key get; (3) three
+   submitter threads of zipfian 64-key batches (a quarter puts) for 5 s,
+   a live ``split`` of shard 0 at its middle (aligned), 5 s more: failed
+   ops (must be 0), batch latency before / during / first after / after
+   the split, time under the gate, shipped bytes; every traffic read and
+   every written key held to the acknowledged-value rule; (4) both
+   kernels on the new shard's operands, bit for bit, and timed; (5)
+   ``add_replica`` of shard 0, a put_batch, ``catch_up_until(0)``, the
+   replica's reads equal the primary's and the oracle's; (6) ``merge`` of
+   the split back; (7) close and ``Cluster(lows=None)``: cold reads until
+   every partition promotes, then promoted reads. Device memory around
+   every topology change, beside each store's view bytes.
 
 The last lines are one JSON object listing the kernels, the card's name
 and power limit from nvidia-smi, and ``{"ok": true, "device": ...}``.
@@ -82,6 +101,7 @@ import os
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -126,6 +146,17 @@ TTL_SHORT, TTL_LONG = 500, 1 << 20  # expired / live at NOW
 # (src/repro_torch/db/store.py, _get_batch_at / _scan_group_at): the query
 # words in; found and values out, or keys, valid and values out
 LEGACY_COPIES = {"get": 3, "scan": 4}
+# phase 7: a fleet behind the port's Cluster. benchmarks/cluster_bench.py:
+# 3 shards, 64-key batches, 3 submitters (:37-39); zipfian ranks permuted
+# over the keys, a quarter of the batches puts (:63-75); 5 s of traffic
+# before and after the split (:118). 2^21 keys, not phase 6's 2^20: at
+# 2^20 each shard held one partition (4-5 tables of 65,536 entries, under
+# t_max = 10), so the split had no boundary to align to
+FLEET_SHARDS, FLEET_BATCH, FLEET_THREADS = 3, 64, 3
+FLEET_KEYS = 1 << 21
+FLEET_PUT_SHARE, FLEET_THETA, FLEET_PHASE_S = 0.25, 0.99, 5.0
+FLEET_FIRST = 16  # post-split batches reported apart (cold reads, promotion)
+FLEET_TAIL = 4096  # stage 5's put_batch into the replicated shard
 DEV = "cuda"
 HBM_BPS = 3.35e12  # H100 SXM device memory, bytes/s
 INT32_LANES_PER_SM = 64  # Hopper SM: 4 partitions x 16 INT32 lanes (H100 whitepaper)
@@ -1284,26 +1315,67 @@ def _launch_counts():
             "selector_decode": SD.selector_decode.launches}
 
 
-def _store_get(db, orc, keys, what):
-    """One store get_batch against the oracle, its syncs held to
-    ``_sync_rule``; returns seconds, syncs, touched partitions and the
-    rule."""
+def run_counted(tag, stage, fn, launches, require=True):
+    """``fn()`` with both kernels' launch counts set to 0 just before it and
+    read just after (before any kernel check launches more), added into
+    ``launches``; fails if ``require`` and a kernel never launched."""
+    from repro_torch.kernels import anchor_search as AS
+    from repro_torch.kernels import selector_decode as SD
+
+    AS.anchor_search.launches = 0
+    SD.selector_decode.launches = 0
+    out = fn()
+    got = _launch_counts()
+    log(f"[{tag}] {stage}: kernel launches {got}")
+    check(not require or all(n > 0 for n in got.values()),
+          f"{stage}: a kernel never launched: {got}")
+    for k, n in got.items():
+        launches[k] += n
+    return out
+
+
+def _shards(target):
+    """(lows, stores) of a store (one range) or of a ``Cluster`` (its shards)."""
+    serve = getattr(target, "serve", None)
+    return ([0], [target]) if serve is None else (list(serve.lows), list(serve.shards))
+
+
+def _routed(target, keys) -> list:
+    """(store, its keys) for each shard of ``target`` that ``keys`` reach."""
+    from repro_torch.db.sharded import route_host
+
+    lows, stores = _shards(target)
+    owner = route_host(lows, keys)
+    return [(stores[i], keys[owner == i]) for i in np.unique(owner)]
+
+
+def _one_rule(rules) -> str | None:
+    """The batch's rule: its shards' rule when they agree, else None."""
+    rules = set(rules)
+    return rules.pop() if len(rules) == 1 else None
+
+
+def _store_get(target, orc, keys, what):
+    """One get_batch of a store or a fleet against the oracle, its syncs
+    held to ``_sync_rule`` over every shard it reaches; returns seconds,
+    syncs, touched partitions and the rule."""
     import torch
 
-    parts = _touched(db, keys)
-    touched = len(parts)
-    rule = _sync_rule(db, parts)
-    b0 = _metric(db.registry, "device_batches")
+    per = [(db, _touched(db, k)) for db, k in _routed(target, keys)]
+    touched = sum(len(ps) for _, ps in per)
+    rule = _one_rule(_sync_rule(db, ps) for db, ps in per)
+    stores = _shards(target)[1]
+    b0 = sum(_metric(db.registry, "device_batches") for db in stores)
     with count_syncs() as syncs:
         ctx = sync_debug_error() if rule == "view" else contextlib.nullcontext()
         t0 = time.perf_counter()
         with ctx:
-            found, vals = db.get_batch(keys)
+            found, vals = target.get_batch(keys)
         dt = time.perf_counter() - t0
     f_o, v_o = orc.get(keys)
     check(np.array_equal(found, f_o), f"{what}: found differs from the oracle")
     check(np.array_equal(vals[found], v_o[found]), f"{what}: values differ from the oracle")
-    dev_batches = _metric(db.registry, "device_batches") - b0
+    dev_batches = sum(_metric(db.registry, "device_batches") for db in stores) - b0
     if rule == "view":
         check(syncs["fetch"] == touched == dev_batches and syncs["other"] == 0,
               f"{what}: {syncs} syncs, {dev_batches} device batches for {touched} "
@@ -1316,99 +1388,117 @@ def _store_get(db, orc, keys, what):
     return dt, syncs, touched, rule
 
 
-def _store_scan_batch(db, orc, starts, n, what):
-    """One store scan_batch against the oracle, counting the cursor
-    fallbacks (``RemixDB._scan_at`` calls) and their syncs apart from the
-    batch's own. Over an empty overlay the batch takes one window call per
-    touched partition, and its syncs are held to ``_sync_rule``: on the
-    view path it runs under the sync debug mode ``error``, each fallback
-    under ``warn``. Over a non-empty overlay every query takes the cursor."""
+def _store_scan_batch(target, orc, starts, n, what):
+    """One scan_batch of a store or a fleet against the oracle, counting
+    the cursor fallbacks and a fleet's drains into the next shard (both
+    ``RemixDB._scan_at`` calls) and their syncs apart from the batch's own.
+    Over empty overlays the batch takes one window call per touched
+    partition, and its syncs are held to ``_sync_rule``: on the view path
+    it runs under the sync debug mode ``error``, each fallback under
+    ``warn``. Over a non-empty overlay every query takes the cursor."""
     import warnings
 
     import torch
 
     from repro_torch.db.sharded import route_host
 
-    parts = [db.partitions[i]
-             for i in np.unique(route_host([p.lo for p in db.partitions], starts))]
-    rule = None if len(db.mem) or db.mem.ranges else _sync_rule(db, parts)
+    per = [(db, [db.partitions[i] for i in
+                 np.unique(route_host([p.lo for p in db.partitions], s))])
+           for db, s in _routed(target, starts)]
+    parts = sum(len(ps) for _, ps in per)
+    rule = (None if any(len(db.mem) or db.mem.ranges for db, _ in per)
+            else _one_rule(_sync_rule(db, ps) for db, ps in per))
     falls = [0, 0]  # fallbacks, their syncs
-    orig = db._scan_at
+    stores = _shards(target)[1]
 
-    def counted(*a, **kw):
-        falls[0] += 1
-        mode = torch.cuda.get_sync_debug_mode() if DEV == "cuda" else 0
-        with warnings.catch_warnings(record=True) as caught:
-            warnings.simplefilter("always")
-            if DEV == "cuda":
-                torch.cuda.set_sync_debug_mode("warn")
-            try:
-                return orig(*a, **kw)
-            finally:
+    def counted(orig):
+        def scan_at(*a, **kw):
+            falls[0] += 1
+            mode = torch.cuda.get_sync_debug_mode() if DEV == "cuda" else 0
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
                 if DEV == "cuda":
-                    torch.cuda.set_sync_debug_mode(mode)
-                falls[1] += sum("synchroniz" in str(w.message) for w in caught)
+                    torch.cuda.set_sync_debug_mode("warn")
+                try:
+                    return orig(*a, **kw)
+                finally:
+                    if DEV == "cuda":
+                        torch.cuda.set_sync_debug_mode(mode)
+                    falls[1] += sum("synchroniz" in str(w.message) for w in caught)
+        return scan_at
 
-    db._scan_at = counted
+    for db in stores:
+        db._scan_at = counted(db._scan_at)
     try:
         with count_syncs() as syncs:
             ctx = sync_debug_error() if rule == "view" else contextlib.nullcontext()
             t0 = time.perf_counter()
             with ctx:
-                kk, mm = db.scan_batch(starts, n)
+                kk, mm = target.scan_batch(starts, n)
             dt = time.perf_counter() - t0
     finally:
-        del db._scan_at
+        for db in stores:
+            del db._scan_at
     for i, s in enumerate(starts.tolist()):
         ko, _ = orc.scan(s, n)
         check(np.array_equal(kk[i][mm[i]], ko), f"{what}: row {i} differs from the oracle")
-    want = {"view": (len(parts), 0),
-            "legacy": (0, LEGACY_COPIES["scan"] * len(parts))}.get(rule)
+    want = {"view": (parts, 0), "legacy": (0, LEGACY_COPIES["scan"] * parts)}.get(rule)
     check(want is None or (syncs["fetch"], syncs["other"]) == want,
           f"{what}: {syncs} syncs besides {falls[1]} in {falls[0]} cursor fallbacks "
-          f"for {len(parts)} touched partitions ({rule} path)")
-    return dt, syncs, falls, len(parts), rule
+          f"for {parts} touched partitions ({rule} path)")
+    return dt, syncs, falls, parts, rule
 
 
-def _store_reads(db, orc, rng, stage, card):
-    """The stage's traffic: get_batch at 256 and 65,536 keys and
-    scan_batch of 256 starts x 50, three first/warm pairs each (µs per key
-    or per query, median with min-max), a single scan and a cursor across
-    a partition boundary. Each batch's syncs are held to ``_sync_rule``
-    (the rule is printed with them: view, legacy, or None where the batch
-    uploads, builds or reads cold)."""
-    parts = db.partitions
-    lows = [p.lo for p in parts]
+def _read_pairs(target, orc, rng, stage, card, tag="store", starts_fn=None, repeats=REPEATS):
+    """get_batch at 256 and 65,536 keys and scan_batch of 256 starts x 50
+    on a store or a fleet, ``repeats`` first/warm pairs each (µs per key or per
+    query, median with min-max). Each batch's syncs are held to
+    ``_sync_rule`` (the rule is printed with them: view, legacy, or None
+    where the batch uploads, builds or reads cold). ``starts_fn(rng)``
+    picks the scan starts (default: live keys at random). Returns every
+    batch's (pass, rule, touched partitions, ...) notes."""
+    seen = set()
     for q in (STORE_GET_SMALL, STORE_GET_LARGE):
         runs = {"first": [], "warm": []}
         notes = set()
-        for _ in range(REPEATS):
+        for _ in range(repeats):
             keys = _store_probe(rng, orc, q)
             for label in ("first", "warm"):
                 dt, syncs, touched, rule = _store_get(
-                    db, orc, keys, f"{stage} get_batch {q} {label}")
+                    target, orc, keys, f"{stage} get_batch {q} {label}")
                 runs[label].append(dt / q * 1e6)
                 notes.add((label, str(rule), touched, syncs["fetch"], syncs["other"]))
-        log(f"[store] {card}: {stage}: get_batch at {q} keys: " + "; ".join(
+        log(f"[{tag}] {card}: {stage}: get_batch at {q} keys: " + "; ".join(
             f"{label} {np.median(v):.4f} us/key (min {min(v):.4f}, max {max(v):.4f})"
             for label, v in runs.items())
             + "; (pass, sync rule, touched partitions, fetch syncs, other syncs) "
             f"{sorted(notes)}")
+        seen |= notes
     runs = {"first": [], "warm": []}
     notes = set()
-    for _ in range(REPEATS):
-        starts = np.sort(rng.choice(orc.live_keys, STORE_SCAN_Q)).astype(np.uint64)
+    for _ in range(repeats):
+        starts = (starts_fn(rng) if starts_fn is not None else
+                  np.sort(rng.choice(orc.live_keys, STORE_SCAN_Q)).astype(np.uint64))
         for label in ("first", "warm"):
             dt, syncs, falls, touched, rule = _store_scan_batch(
-                db, orc, starts, STORE_SCAN_N, f"{stage} scan_batch {label}")
-            runs[label].append(dt / STORE_SCAN_Q * 1e6)
+                target, orc, starts, STORE_SCAN_N, f"{stage} scan_batch {label}")
+            runs[label].append(dt / len(starts) * 1e6)
             notes.add((label, str(rule), touched, falls[0], falls[1], syncs["fetch"],
                        syncs["other"]))
-    log(f"[store] {card}: {stage}: scan_batch {STORE_SCAN_Q} x {STORE_SCAN_N}: " + "; ".join(
+    log(f"[{tag}] {card}: {stage}: scan_batch {STORE_SCAN_Q} x {STORE_SCAN_N}: " + "; ".join(
         f"{label} {np.median(v):.3f} us/query (min {min(v):.3f}, max {max(v):.3f})"
         for label, v in runs.items())
         + "; (pass, sync rule, touched partitions, cursor fallbacks, their syncs, "
         f"fetch syncs, other syncs) {sorted(notes)}")
+    return seen | notes
+
+
+def _store_reads(db, orc, rng, stage, card):
+    """``_read_pairs`` on the store, then a single scan and a cursor across
+    a partition boundary."""
+    _read_pairs(db, orc, rng, stage, card)
+    parts = db.partitions
+    lows = [p.lo for p in parts]
     s = int(rng.choice(orc.live_keys))
     kk, vv = db.scan(s, STORE_SCAN_N)
     ko, vo = orc.scan(s, STORE_SCAN_N)
@@ -1638,20 +1728,6 @@ def phase_store(rng, root, card):
         f"{cfg.promote_fraction}, sync_policy {cfg.sync_policy}, ckb {cfg.ckb}")
     launches = {k: 0 for k in _launch_counts()}
 
-    def run_stage(stage, fn):
-        from repro_torch.kernels import anchor_search as AS
-        from repro_torch.kernels import selector_decode as SD
-
-        AS.anchor_search.launches = 0
-        SD.selector_decode.launches = 0
-        out = fn()
-        got = _launch_counts()  # read before the kernel checks launch more
-        log(f"[store] {stage}: kernel launches {got}")
-        check(all(n > 0 for n in got.values()), f"{stage}: a kernel never launched: {got}")
-        for k, n in got.items():
-            launches[k] += n
-        return out
-
     # ---- load
     orc = StoreOracle(VW)
     db = RemixDB(cfg)
@@ -1703,7 +1779,7 @@ def phase_store(rng, root, card):
             profile_batches(f"{card}: store get_batch at {STORE_GET_SMALL} keys",
                             lambda: db.get_batch(keys), 10)
 
-    run_stage("stage 1", stage1)
+    run_counted("store", "stage 1", stage1, launches)
     fallback = _metric(db.registry, "device_fallback_total")
     check(fallback == 0, f"device_fallback_total {fallback}")
     mem_n = len(db.mem)
@@ -1746,7 +1822,7 @@ def phase_store(rng, root, card):
         db2.close()
         return driven
 
-    driven = run_stage("stage 2", stage2)
+    driven = run_counted("store", "stage 2", stage2, launches)
     _g_guard("stage 2", {v.remix.g for v, _ in driven[1]})
     shapes, err = (view_kernels(driven[0], driven[1], card, tier="store", tag="store")
                    if DEV == "cuda" else ({}, {}))
@@ -1774,13 +1850,455 @@ def phase_store(rng, root, card):
         db3.close()
         return driven
 
-    driven = run_stage("stage 3", stage3)
+    driven = run_counted("store", "stage 3", stage3, launches)
     _g_guard("stage 3", {remix.g for _, remix, _, _ in driven})
     if DEV == "cuda":
         legacy_shapes, legacy_err = legacy_kernels(driven, card)
         shapes = {k: shapes[k] + legacy_shapes[k] for k in shapes}
         err = {k: max(err[k], legacy_err[k]) for k in err}
     clock.reset()
+    return launches, shapes, err
+
+
+# ---------------------------------------------------------------- phase 7
+class GateClock:
+    """A ``Cluster``'s submission gate (an RLock) that records how long
+    each thread held it, outermost acquire to release, so the split's
+    cutover can be read apart from the submitters' short holds."""
+
+    def __init__(self, lock):
+        self.lock = lock
+        self.local = threading.local()
+        self.holds = []  # (thread name, t_acquired, t_released)
+
+    def __enter__(self):
+        self.lock.acquire()
+        depth = getattr(self.local, "depth", 0)
+        if depth == 0:
+            self.local.t0 = time.perf_counter()
+        self.local.depth = depth + 1
+        return self
+
+    def __exit__(self, *exc):
+        self.local.depth -= 1
+        if self.local.depth == 0:
+            self.holds.append((threading.current_thread().name, self.local.t0,
+                               time.perf_counter()))
+        self.lock.release()
+        return False
+
+
+class FleetTraffic:
+    """``FLEET_THREADS`` submitters of ``FLEET_BATCH``-key batches through
+    ``Cluster.submit`` (``benchmarks/cluster_bench.py``): keys drawn by a
+    zipfian (theta 0.99) over ranks permuted over ``keys``, ``FLEET_PUT_SHARE``
+    of the batches ``Op.put`` with every value word ``t + 1`` for thread
+    ``t``, the rest ``Op.multiget``. Each batch's submit-to-result time is
+    recorded with its keys (and a read's answers)."""
+
+    def __init__(self, cluster, keys, seed):
+        rng = np.random.default_rng(seed)
+        self.cluster = cluster
+        self.keys = rng.permutation(keys)
+        w = 1.0 / np.arange(1, len(keys) + 1, dtype=np.float64) ** FLEET_THETA
+        self.cdf = np.cumsum(w) / w.sum()
+        self.seed = seed
+        self.stop_ev = threading.Event()
+        self.lock = threading.Lock()
+        self.reads, self.writes, self.failed = [], [], []
+        self.threads = [threading.Thread(target=self._loop, args=(t,), name=f"submitter-{t}")
+                        for t in range(FLEET_THREADS)]
+
+    def _loop(self, tid):
+        from repro_torch.db.ops import Batch, Op
+
+        rng = np.random.default_rng(self.seed + 1 + tid)
+        while not self.stop_ev.is_set():
+            ks = self.keys[np.minimum(np.searchsorted(self.cdf, rng.random(FLEET_BATCH)),
+                                      len(self.keys) - 1)]
+            write = rng.random() < FLEET_PUT_SHARE
+            op = (Op.put(ks, np.full((len(ks), VW), tid + 1, np.uint32)) if write
+                  else Op.multiget(ks))
+            t0 = time.perf_counter()
+            try:
+                r = self.cluster.submit(Batch([op])).result(timeout=120).results[0]
+                r.raise_if_error()
+            except Exception as e:  # every failure is counted; the phase requires 0
+                with self.lock:
+                    self.failed.append(repr(e))
+                continue
+            t1 = time.perf_counter()
+            with self.lock:
+                if write:
+                    self.writes.append((t0, t1, tid, ks))
+                else:
+                    self.reads.append((t0, t1, ks, r.found, r.vals))
+
+    def start(self):
+        for t in self.threads:
+            t.start()
+
+    def stop(self):
+        self.stop_ev.set()
+        for t in self.threads:
+            t.join(timeout=300)
+        check(not any(t.is_alive() for t in self.threads), "a submitter did not stop")
+
+    def latencies(self, t_lo, t_hi):
+        """Seconds of the batches submitted in [t_lo, t_hi), in submit order."""
+        rows = sorted((t0, t1 - t0) for t0, t1, *_ in self.reads + self.writes
+                      if t_lo <= t0 < t_hi)
+        return np.array([d for _, d in rows])
+
+
+def _written(traffic):
+    """Every key the traffic put: sorted keys, a bitmask of the threads
+    that put each, and each key's first acknowledgement time."""
+    keys = np.concatenate([w[3] for w in traffic.writes])
+    tids = np.concatenate([np.full(len(w[3]), w[2]) for w in traffic.writes])
+    acks = np.concatenate([np.full(len(w[3]), w[1]) for w in traffic.writes])
+    uk, inv = np.unique(keys, return_inverse=True)
+    mask = np.zeros(len(uk), np.int64)
+    np.bitwise_or.at(mask, inv, 1 << tids)
+    first = np.full(len(uk), np.inf)
+    np.minimum.at(first, inv, acks)
+    return uk, mask, first
+
+
+def _acked(vals, mask):
+    """Rows of ``vals`` that a put of a thread in ``mask`` wrote: every
+    word ``t + 1``."""
+    t = vals[:, 0].astype(np.int64) - 1
+    return ((vals == vals[:, :1]).all(1) & (t >= 0) & (t < FLEET_THREADS)
+            & ((mask >> np.clip(t, 0, 62)) & 1).astype(bool))
+
+
+def _check_traffic_reads(traffic, orc):
+    """The acknowledged-value rule on every read the traffic made: each key
+    is live in the preload and never deleted, so it is found, and its value
+    is the preload's or a put's of a thread that put it (``_acked``); once
+    a put of the key was acknowledged before the read was submitted, the
+    preload's value is no longer allowed. Returns the reads checked."""
+    uk, mask, first = _written(traffic)
+    n = 0
+    for t0, _, ks, found, vals in traffic.reads:
+        check(found.all(), "a traffic read lost a key")
+        _, pre = orc.get(ks)
+        i = np.minimum(np.searchsorted(uk, ks), len(uk) - 1)
+        hit = uk[i] == ks
+        m = np.where(hit, mask[i], 0)
+        ok = _acked(vals, m) | ((vals == pre).all(1) & ~(hit & (first[i] < t0)))
+        check(ok.all(), f"a traffic read returned a value no write put there: "
+                        f"{vals[~ok][:2].tolist()} for {ks[~ok][:2].tolist()}")
+        n += len(ks)
+    return n
+
+
+def _fleet_load(cluster, orc, rng) -> int:
+    """``FLEET_KEYS`` keys through ``Cluster.submit``: ``Op.put`` batches of
+    ``STORE_BATCH`` keys uniform over [0, 2^40), 20% overwrites of earlier
+    keys, 1% point deletes per batch through one Batch of ``Op.delete``,
+    one ``Op.delete_range`` of 2^34 a third of the way in; then a flush."""
+    from repro_torch.db.ops import Batch, Op
+
+    nb = FLEET_KEYS // STORE_BATCH
+    pool = np.zeros(0, np.uint64)
+    n_put = 0
+    for b in range(nb):
+        over = rng.choice(pool, STORE_BATCH // 5) if len(pool) else pool
+        keys = np.unique(np.concatenate([
+            rng.integers(0, STORE_DOMAIN, STORE_BATCH - len(over), dtype=np.uint64), over]))
+        rng.shuffle(keys)
+        vals = rng.integers(0, 2**32, (len(keys), VW), dtype=np.uint64).astype(np.uint32)
+        dels = rng.choice(pool if len(pool) else keys, STORE_BATCH // 100)
+        ops = [Batch([Op.put(keys, vals)]), Batch([Op.delete(int(k)) for k in dels])]
+        if b == nb // 3:
+            lo = int(rng.integers(0, STORE_DOMAIN - (1 << 34)))
+            ops.append(Batch([Op.delete_range(lo, lo + (1 << 34))]))
+        for batch in ops:
+            check(cluster.submit(batch).result(timeout=600).ok, "a load batch failed")
+        orc.put(keys, vals)
+        orc.delete(dels)
+        if b == nb // 3:
+            orc.delete_range(lo, lo + (1 << 34))
+        pool = np.concatenate([pool, keys])
+        n_put += len(keys)
+    cluster.flush()
+    return n_put
+
+
+def _fleet_starts(orc, lows):
+    """Scan starts for the fleet: live keys at random, and for every shard
+    boundary the 8 live keys just below it, whose Seek+Next50 drains into
+    the next shard."""
+    def pick(rng):
+        edge = [orc.live_keys[max(0, np.searchsorted(orc.live_keys, np.uint64(b)) - 8):
+                              np.searchsorted(orc.live_keys, np.uint64(b))]
+                for b in lows[1:]]
+        edge = np.concatenate(edge)
+        rest = rng.choice(orc.live_keys, STORE_SCAN_Q - len(edge))
+        return np.sort(np.concatenate([edge, rest])).astype(np.uint64)
+    return pick
+
+
+def _fleet_memory(label, base, stores):
+    """Device bytes now (since the phase began) beside each tracked store's
+    view bytes: ``stores`` maps a label to a weak reference of a store."""
+    import torch
+
+    alloc = 0
+    if DEV == "cuda":
+        torch.cuda.synchronize()
+        alloc = torch.cuda.memory_allocated() - base
+    held = []
+    for name, ref in stores.items():
+        db = ref()
+        held.append(f"{name}: " + ("collected" if db is None else
+                    f"referenced, views "
+                    f"{0 if db.device_views is None else db.device_views.resident_bytes} B"))
+    log(f"[cluster] device memory {label}: torch.cuda.memory_allocated {alloc} B since the "
+        f"phase began; stores: {'; '.join(held)}")
+    return alloc
+
+
+def _promote(cluster, db, orc, rng, lo, hi, what):
+    """65,536-key gets into one shard's span ``[lo, hi)`` through the fleet
+    until every partition of ``db`` is promoted (cold reads until then);
+    each batch against the oracle. Returns the edge: (batch, µs/key, cold
+    gets, device batches, cold partitions after it)."""
+    live = orc.live_keys[(orc.live_keys >= np.uint64(lo)) & (orc.live_keys < np.uint64(hi))]
+    edge = []
+    for i in range(STORE_EDGE_ROUNDS):
+        cold = [p for p in db.partitions if db._cold_ok(p)]
+        if not cold:
+            break
+        keys = rng.choice(live, STORE_GET_LARGE).astype(np.uint64)
+        c0 = db.stats()["cold"]["gets"]
+        b0 = _metric(db.registry, "device_batches")
+        dt, _, _, _ = _store_get(cluster, orc, keys, f"{what} edge {i}")
+        edge.append((i, round(dt / len(keys) * 1e6, 4), db.stats()["cold"]["gets"] - c0,
+                     _metric(db.registry, "device_batches") - b0,
+                     sum(db._cold_ok(p) for p in db.partitions)))
+    check(not any(db._cold_ok(p) for p in db.partitions), f"{what}: a partition stayed cold")
+    return edge
+
+
+def phase_cluster(rng, root, card):
+    """Drive a 3-shard fleet through the port's ``Cluster`` (see the module
+    docstring, phase 7); returns the kernels' launches over the phase, the
+    shapes timed on the new shard's operands and the kernels' max |err|."""
+    import gc
+    import weakref
+
+    import torch
+
+    from repro_torch.cluster import Cluster
+
+    mem0 = 0
+    gc.collect()  # the baseline holds nothing of earlier phases' closed stores
+    if DEV == "cuda":
+        torch.cuda.synchronize()
+        mem0 = torch.cuda.memory_allocated()
+    cfg = store_config(None)
+    lows0 = [i * (STORE_DOMAIN // FLEET_SHARDS) for i in range(FLEET_SHARDS)]
+    cluster = Cluster(root, lows=lows0, config=cfg)
+    log(f"[cluster] Cluster: lows {lows0}, cache_bytes {cluster.serve.cache.capacity_bytes}, "
+        f"submit workers {cluster.serve._submit_workers}; each shard's RemixDBConfig as "
+        f"phase 6's (device {cfg.device})")
+    launches = {k: 0 for k in _launch_counts()}
+    orc = StoreOracle(VW)
+    box = {}
+
+    # ---- stage 1: load
+    def stage1():
+        t0 = time.perf_counter()
+        n_put = _fleet_load(cluster, orc, rng)
+        dt = time.perf_counter() - t0
+        orc.resolve(NOW)
+        st = cluster.stats()["stores"]
+        du = sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(root) for f in fs)
+        flushes = [int(db.registry.histogram("db_flush_seconds").summary()["count"])
+                   for db in cluster.serve.shards]
+        log(f"[cluster] {card}: stage 1: loaded {n_put} put keys ({orc.n} writes with the "
+            f"deletes) through Cluster.submit in {dt:.3f} s: {n_put / dt:.0f} keys/s; flushes "
+            f"per shard {flushes}; partitions per shard {[s['partitions'] for s in st]}; "
+            f"entries per shard {[s['entries'] for s in st]}; memtable entries carried by the "
+            f"flush {[s['memtable'] for s in st]}; {du} bytes on disk; oracle "
+            f"{len(orc.live_keys)} live keys")
+        check(min(s["partitions"] for s in st) >= 1, "a shard has no partition")
+
+    run_counted("cluster", "stage 1 (load)", stage1, launches, require=False)
+
+    # ---- stage 2: quiesced reads through the fleet
+    def stage2():
+        notes = _read_pairs(cluster, orc, rng, "stage 2 (loaded, flushed)", card, tag="cluster",
+                            starts_fn=_fleet_starts(orc, lows0))
+        # a scan over a shard whose flush carried entries in its memtable
+        # takes the cursor (rule None); the gets hold the view path
+        check(all(n[1] == "view" for n in notes if n[0] == "warm" and len(n) == 5),
+              f"a warm fleet get left the view path: {notes}")
+        check(all(n[3] > 0 for n in notes if len(n) == 7), "no scan drained into the next shard")
+        keys = _store_probe(rng, orc, STORE_GET_SMALL)
+        profile_batches(f"{card}: fleet get_batch at {STORE_GET_SMALL} keys",
+                        lambda: cluster.get_batch(keys), 10)
+
+    run_counted("cluster", "stage 2 (quiesced reads)", stage2, launches)
+
+    # ---- stage 3: live split under zipfian traffic
+    refs = {f"shard {lo}": weakref.ref(db) for lo, db in zip(lows0, cluster.serve.shards)}
+    box["mem"] = [("before the split (3 shards)", _fleet_memory("before the split", mem0, refs))]
+
+    def stage3():
+        gate = GateClock(cluster._gate)
+        cluster._gate = gate
+        bounds = [int(p.lo) for p in cluster.serve.shards[0].partitions if 0 < p.lo < lows0[1]]
+        traffic = FleetTraffic(cluster, orc.live_keys, seed=int(rng.integers(1 << 30)))
+        traffic.start()
+        t_start = time.perf_counter()
+        time.sleep(FLEET_PHASE_S)
+        t_split0 = time.perf_counter()
+        rep = cluster.split(lows0[1] // 2)
+        t_split1 = time.perf_counter()
+        time.sleep(FLEET_PHASE_S)
+        traffic.stop()
+        t_end = time.perf_counter()
+        cluster._gate = gate.lock
+        check(not traffic.failed, f"{len(traffic.failed)} failed ops: {traffic.failed[:3]}")
+        at = rep["at"]
+        check(cluster.lows == sorted(lows0 + [at]), f"lows after the split {cluster.lows}")
+        check(at in bounds, f"the split at {at} is not one of shard 0's partition "
+                            f"boundaries {bounds}")
+        me = threading.current_thread().name
+        held = [b - a for name, a, b in gate.holds if name == me and t_split0 <= a <= t_split1]
+        pre = traffic.latencies(t_start, t_split0)
+        during = traffic.latencies(t_split0, t_split1)
+        post = traffic.latencies(t_split1, t_end)
+        first, steady = post[:FLEET_FIRST], post[FLEET_FIRST:]
+        nb = len(traffic.reads) + len(traffic.writes)
+
+        def pct(a):
+            return (f"p50 {np.percentile(a, 50) * 1e3:.3f} ms, p99 "
+                    f"{np.percentile(a, 99) * 1e3:.3f} ms ({len(a)} batches)") if len(a) else "none"
+
+        log(f"[cluster] {card}: stage 3: {nb} batches, {nb * FLEET_BATCH} ops "
+            f"({len(traffic.writes)} put batches) from {FLEET_THREADS} submitters over "
+            f"{t_end - t_start:.3f} s; failed ops {len(traffic.failed)}")
+        log(f"[cluster] {card}: stage 3: split at {at} (asked {lows0[1] // 2}; aligned to "
+            f"one of shard 0's partition boundaries {bounds}) in "
+            f"{t_split1 - t_split0:.3f} s; time under the gate {max(held) * 1e3:.3f} ms "
+            f"(the split's holds {[round(h * 1e3, 3) for h in held]} ms); shipped "
+            f"{rep['shipped']['bytes']} bytes in {rep['shipped']['files']} files, "
+            f"{rep['shipped']['records']} WAL records; final catch-up {rep['final']}")
+        log(f"[cluster] {card}: stage 3 batch latency: before the split {pct(pre)}; during "
+            f"{pct(during)}; first {FLEET_FIRST} after {pct(first)}; after those {pct(steady)}")
+        checked = _check_traffic_reads(traffic, orc)
+        uk, mask, _ = _written(traffic)
+        found, vals = cluster.get_batch(uk)
+        check(found.all(), "a key the traffic put was lost")
+        check(_acked(vals, mask).all(), "a key reads back a value no acknowledged put wrote")
+        orc.put(uk, vals)
+        orc.resolve(NOW)
+        log(f"[cluster] stage 3: {checked} traffic reads and {len(uk)} written keys read back "
+            "hold the acknowledged-value rule; the oracle takes the values read")
+        box["at"] = at
+        new = cluster.serve.shards[1]
+        refs[f"shard {at} (split off)"] = weakref.ref(new)
+        box["mem"].append(("after the split (4 shards; shard 0 trimmed)",
+                           _fleet_memory("after the split", mem0, refs)))
+        edge = _promote(cluster, new, orc, rng, at, lows0[1], "stage 3 new shard")
+        log(f"[cluster] {card}: stage 3: the new shard after the traffic: promotion edge "
+            f"(batch, us/key, cold gets, device batches, cold partitions left) {edge}; "
+            f"{len(new.partitions)} partitions")
+        t0 = time.perf_counter()
+        cluster.flush()
+        log(f"[cluster] stage 3: fleet flush after the traffic in {time.perf_counter() - t0:.3f} s")
+        return _store_operands(new, orc, rng)
+
+    driven = run_counted("cluster", "stage 3 (live split under traffic)", stage3, launches)
+
+    # ---- stage 4: the kernels on the new shard's operands (not counted)
+    _g_guard("cluster stage 4", {v.remix.g for v, _ in driven[1]})
+    shapes, err = (view_kernels(driven[0], driven[1], card, tier="fleet's new shard",
+                                tag="cluster") if DEV == "cuda" else ({}, {}))
+    del driven
+
+    # ---- stage 5: a replica of shard 0
+    def stage5():
+        at = box["at"]
+        rep = cluster.add_replica(lows0[0])
+        refs["replica of shard 0"] = weakref.ref(rep.db)
+        keys = np.unique(rng.integers(0, at, FLEET_TAIL, dtype=np.uint64))
+        vals = rng.integers(0, 2**32, (len(keys), VW), dtype=np.uint64).astype(np.uint32)
+        cluster.put_batch(keys, vals)
+        orc.put(keys, vals)
+        orc.resolve(NOW)
+        lag = rep.seq_lag()
+        t0 = time.perf_counter()
+        final = rep.catch_up_until(0)
+        dt = time.perf_counter() - t0
+        check(rep.seq_lag() == 0 and final["lag"] == 0, f"replica lag {rep.seq_lag()}")
+        q = _store_probe(rng, orc, STORE_GET_LARGE)
+        q = q[q < np.uint64(at)]
+        f_r, v_r = rep.get_batch(q)
+        f_p, v_p = cluster.get_batch(q)
+        f_o, v_o = orc.get(q)
+        check(np.array_equal(f_r, f_o) and np.array_equal(f_p, f_o)
+              and np.array_equal(v_r[f_r], v_o[f_o]) and np.array_equal(v_p[f_p], v_o[f_o]),
+              "the replica, the primary and the oracle disagree")
+        log(f"[cluster] {card}: stage 5: replica of shard 0 shipped {rep.report['bytes']} "
+            f"bytes; lag before the catch-up {lag}; catch_up_until(0) in {dt:.3f} s ({final}); "
+            f"get_batch of {len(q)} keys equal on the replica, the primary and the oracle")
+        box["mem"].append(("with the replica", _fleet_memory("with the replica", mem0, refs)))
+
+    run_counted("cluster", "stage 5 (replica)", stage5, launches)
+
+    # ---- stage 6: merge the split back
+    def stage6():
+        at = box["at"]
+        t0 = time.perf_counter()
+        rep = cluster.merge(at)
+        dt = time.perf_counter() - t0
+        check(cluster.lows == lows0, f"lows after the merge {cluster.lows}")
+        retired = [n for n in os.listdir(root) if n.startswith("retired-")]
+        log(f"[cluster] {card}: stage 6: merge at {at} in {dt:.3f} s: {rep}; retired "
+            f"directories {retired}")
+        box["mem"].append(("after the merge", _fleet_memory("after the merge", mem0, refs)))
+        gc.collect()
+        box["mem"].append(("after the merge and gc.collect()",
+                           _fleet_memory("after the merge and gc.collect()", mem0, refs)))
+        _read_pairs(cluster, orc, rng, "stage 6 (merged)", card, tag="cluster",
+                    starts_fn=_fleet_starts(orc, lows0), repeats=1)
+
+    run_counted("cluster", "stage 6 (merge)", stage6, launches)
+
+    # ---- stage 7: close and reopen the fleet from its directory
+    def stage7():
+        nonlocal cluster
+        cluster.close()
+        box["mem"].append(("after close", _fleet_memory("after close", mem0, refs)))
+        cluster = None
+        gc.collect()
+        box["mem"].append(("after close and gc.collect()",
+                           _fleet_memory("after close and gc.collect()", mem0, refs)))
+        t0 = time.perf_counter()
+        c2 = Cluster(root, lows=None, config=cfg)
+        log(f"[cluster] {card}: stage 7: Cluster(lows=None) reopened {c2.lows} in "
+            f"{time.perf_counter() - t0:.3f} s; memtables {[len(db.mem) for db in c2.serve.shards]}")
+        check(c2.lows == lows0, f"reopened lows {c2.lows}")
+        spans = c2.spans()
+        for db, (lo, hi) in zip(c2.serve.shards, spans):
+            edge = _promote(c2, db, orc, rng, lo, min(hi, STORE_DOMAIN), f"stage 7 shard {lo}")
+            log(f"[cluster] {card}: stage 7: shard {lo}: promotion edge (batch, us/key, cold "
+                f"gets, device batches, cold partitions left) {edge}")
+            check(edge and edge[0][2] > 0, f"stage 7 shard {lo}: the first batch was not cold")
+        _read_pairs(c2, orc, rng, "stage 7 (reopened, promoted)", card, tag="cluster",
+                    starts_fn=_fleet_starts(orc, lows0))
+        c2.close()
+
+    run_counted("cluster", "stage 7 (reopen)", stage7, launches)
+    gc.collect()
+    box["mem"].append(("after the phase", _fleet_memory("after the phase", mem0, refs)))
+    log(f"[cluster] device memory over the phase (label, bytes since it began): {box['mem']}")
     return launches, shapes, err
 
 
@@ -1806,6 +2324,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke.py: CUDA is not available", file=sys.stderr)
         return 1
+    t_script = time.perf_counter()
     sys.path.insert(0, str(SRC))
     rng = np.random.default_rng(args.seed)
     card = smi()
@@ -1826,12 +2345,16 @@ def main() -> int:
         peak = torch.cuda.max_memory_allocated()  # phase 6 resets the peak
         with tempfile.TemporaryDirectory() as root:
             store_launches, store_shapes, store_err = phase_store(rng, root, card)
-        launches = {k: n + store_launches[k] for k, n in launches.items()}
+        with tempfile.TemporaryDirectory() as root:
+            fleet_launches, fleet_shapes, fleet_err = phase_cluster(rng, root, card)
+        launches = {k: n + store_launches[k] + fleet_launches[k] for k, n in launches.items()}
         for t in timings:
-            t["shapes"] += idx_shapes[t["name"]] + store_shapes[t["name"]]
+            t["shapes"] += idx_shapes[t["name"]] + store_shapes[t["name"]] + fleet_shapes[t["name"]]
             t["max_abs_err"] = max(t["max_abs_err"], idx_err[t["name"]],
-                                   store_err[t["name"]])
+                                   store_err[t["name"]], fleet_err[t["name"]])
         log(f"[device] peak allocated {max(peak, torch.cuda.max_memory_allocated())} bytes")
+        log(f"[device] launches over all phases {launches} (phase 7: {fleet_launches}); "
+            f"script ran {time.perf_counter() - t_script:.1f} s")
     except Fail as e:
         print(f"chip_smoke.py: FAILED: {e}", file=sys.stderr)
         return 1

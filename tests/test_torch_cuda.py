@@ -269,3 +269,56 @@ def test_store_on_card_matches_cpu(card, tmp_path):
             db.close()
     finally:
         clock.reset()
+
+
+def test_cluster_on_card_matches_cpu(card, tmp_path):
+    """A 2-shard Cluster on the card and one on the CPU take the same op
+    stream, a live split and a merge back; they answer alike at every step,
+    and the card fleet reads through its shards' device views."""
+    from repro_torch.cluster import Cluster
+    from repro_torch.db.compaction import CompactionConfig
+    from repro_torch.db.store import RemixDBConfig
+
+    fleets = [Cluster(str(tmp_path / f"fleet{i}"), lows=(0, 1 << 29), config=RemixDBConfig(
+        vw=4, memtable_entries=2048, device=str(dev),
+        compaction=CompactionConfig(table_cap=1024, t_max=4)))
+        for i, dev in enumerate(("cpu", card))]
+    rng = np.random.default_rng(11)
+    q = rng.integers(0, 1 << 30, 4096).astype(np.uint64)
+    starts = np.sort(rng.integers(0, 1 << 30, 64)).astype(np.uint64)
+
+    def same():
+        (fa, va), (fb, vb) = (c.get_batch(q) for c in fleets)
+        np.testing.assert_array_equal(fa, fb)
+        np.testing.assert_array_equal(va[fa], vb[fb])
+        (ka, ma), (kb, mb) = (c.scan_batch(starts, 50) for c in fleets)
+        np.testing.assert_array_equal(ma, mb)
+        np.testing.assert_array_equal(ka[ma], kb[mb])
+
+    try:
+        for _ in range(8):
+            keys = rng.integers(0, 1 << 30, 1500).astype(np.uint64)
+            vals = rng.integers(0, 2**32, (1500, 4), dtype=np.uint64).astype(np.uint32)
+            for c in fleets:
+                c.put_batch(keys, vals)
+        for c in fleets:
+            c.delete_range(1 << 27, 1 << 28)
+            c.flush()
+        q[:2048] = rng.choice(keys, 2048)
+        same()
+        at = [c.split(3 << 28)["at"] for c in fleets]
+        assert at[0] == at[1] and fleets[1].lows == fleets[0].lows
+        same()
+        for c in fleets:
+            c.put_batch(keys[:500], vals[:500] ^ np.uint32(1))
+        same()
+        for c in fleets:
+            c.merge(at[0])
+        assert fleets[0].lows == fleets[1].lows == [0, 1 << 29]
+        same()
+        gpu = fleets[1].serve.shards
+        assert all(db.device.type == "cuda" and db.device_views is not None for db in gpu)
+        assert sum(db.registry.counter("device_batches").value for db in gpu) > 0
+    finally:
+        for c in fleets:
+            c.close()

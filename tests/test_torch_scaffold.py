@@ -35,6 +35,9 @@ def test_port_imports_neither_jax_nor_repro():
     assert out.returncode == 0, out.stderr
     assert out.stdout.startswith("0 []"), out.stdout
     assert len(MODULES) >= 15
+    assert {"repro_torch.serve", "repro_torch.serve.engine", "repro_torch.cluster",
+            "repro_torch.cluster.cluster", "repro_torch.cluster.replica",
+            "repro_torch.cluster.ship", "repro_torch.cluster.placement"} <= set(MODULES)
 
 
 FORBIDDEN = re.compile(
@@ -61,35 +64,40 @@ def test_forbidden_pattern_tells_repro_from_repro_torch():
 
 
 def _entry_points():
+    """Each entry point, called with a scratch directory."""
+    from repro_torch.cluster import Cluster
     from repro_torch.core.remix import remix_from_arrays, remix_from_order
     from repro_torch.core.runs import make_run, runset_from_arrays
     from repro_torch.db.partition import Partition
     from repro_torch.db.store import RemixDB
     from repro_torch.device import resolve
     from repro_torch.kernels.device_view import DeviceViewManager
+    from repro_torch.serve import KVServeEngine
 
     k = np.zeros((1, 2), np.uint32)
     one = np.zeros(1, np.int32)
     return {
-        "resolve": lambda: resolve(),
-        "DeviceViewManager": lambda: DeviceViewManager(1 << 20),
-        "Partition": lambda: Partition(0, []),
-        "RemixDB": lambda: RemixDB(),
-        "make_run": lambda: make_run(np.arange(4, dtype=np.uint64)),
-        "remix_from_arrays": lambda: remix_from_arrays(k, one[:, None], np.zeros(8, np.uint8), 1, 8),
-        "runset_from_arrays": lambda: runset_from_arrays(k[None], k[None], one[None], one[None] > 0, one),
-        "remix_from_order": lambda: remix_from_order(one, one, one > -1, [k], 8),
+        "resolve": lambda tmp: resolve(),
+        "DeviceViewManager": lambda tmp: DeviceViewManager(1 << 20),
+        "Partition": lambda tmp: Partition(0, []),
+        "RemixDB": lambda tmp: RemixDB(),
+        "KVServeEngine": lambda tmp: KVServeEngine([(0, str(tmp / "s0"))]),
+        "Cluster": lambda tmp: Cluster(str(tmp / "fleet")),
+        "make_run": lambda tmp: make_run(np.arange(4, dtype=np.uint64)),
+        "remix_from_arrays": lambda tmp: remix_from_arrays(k, one[:, None], np.zeros(8, np.uint8), 1, 8),
+        "runset_from_arrays": lambda tmp: runset_from_arrays(k[None], k[None], one[None], one[None] > 0, one),
+        "remix_from_order": lambda tmp: remix_from_order(one, one, one > -1, [k], 8),
     }
 
 
 @pytest.mark.parametrize("name", sorted(_entry_points()))
-def test_entry_points_default_to_cuda_and_raise_without_it(name, monkeypatch):
+def test_entry_points_default_to_cuda_and_raise_without_it(name, monkeypatch, tmp_path):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
-        _entry_points()[name]()
+        _entry_points()[name](tmp_path)
 
 
-def test_entry_points_run_on_the_cpu_when_asked():
+def test_entry_points_run_on_the_cpu_when_asked(tmp_path):
     from repro_torch.core.runs import make_run
     from repro_torch.db.partition import Partition
     from repro_torch.kernels.device_view import DeviceViewManager
@@ -102,6 +110,11 @@ def test_entry_points_run_on_the_cpu_when_asked():
     db = RemixDB(RemixDBConfig(device="cpu"))
     assert db.device.type == "cpu" and db.device_views is None
     assert db.partitions[0].device.type == "cpu"
+    from repro_torch.cluster import Cluster
+
+    with Cluster(str(tmp_path / "fleet"), lows=(0, 1 << 32),
+                 config=RemixDBConfig(device="cpu")) as c:
+        assert [db.device.type for db in c.serve.shards] == ["cpu", "cpu"]
 
 
 def test_file_backed_table_answers_from_the_header(tmp_path):

@@ -9,15 +9,33 @@ reference's answer is returned, so a test written against the reference
 reads unchanged. Objects that are not plain values (stores, snapshots,
 cursors, futures, partitions) come back as Twins themselves.
 
+Directories are split per side: the port's is the reference's with
+``.port`` appended. That covers a config's ``data_dir`` and ``wal_dir``,
+``pair_class(...).open(path)``, and the directory arguments that the
+serving and cluster tiers take as plain values (``_PATH_PARAMS``: a
+``Cluster`` root, a ``ship_snapshot`` / ``ShardFollower`` / ``Replica`` /
+``add_replica`` destination, the directories in a ``KVServeEngine``'s
+``(lo, dir)`` shard list). Paths in answers compare equal when they differ
+only by that suffix. A reference ``FaultPlan`` is carried to the port as a
+fresh plan with the same rules and random state, made once per plan and
+reused, so both sides fire the same faults; an ``IOContext`` takes the
+port's plan.
+
 Fields that measure wall time (``*_s``, ``*seconds*``) are not compared,
-nor the value words of keys a batched get did not find.
+nor the value words of keys a batched get did not find, nor a latency
+histogram's buckets and sums in a ``metrics()`` snapshot: its name, labels
+and count are compared. The instruments a store registers when it runs
+device views (``DEVICE_VIEW_METRICS``) are left out of the port's snapshot
+where the reference, on its host path, has none.
 """
 from __future__ import annotations
 
 import dataclasses
 import enum
 import importlib
+import inspect
 import os
+import weakref
 
 import numpy as np
 
@@ -36,6 +54,44 @@ def _port_path(path: str) -> str:
     return str(path).rstrip("/") + ".port"
 
 
+# parameters that name a directory (``shards``: a list of (lo, dir-or-store))
+_PATH_PARAMS = ("root", "dst_dir", "shards")
+_PLANS: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
+
+
+def _port_paths(fn, args, kw):
+    """``args`` / ``kw`` of a call to ``fn`` with its directory parameters
+    (``_PATH_PARAMS``) given the port's directories."""
+    try:
+        bound = inspect.signature(fn).bind(*args, **kw)
+    except (TypeError, ValueError):
+        return args, kw
+    for name in _PATH_PARAMS:
+        v = bound.arguments.get(name)
+        if name == "shards" and isinstance(v, (list, tuple)):
+            bound.arguments[name] = [
+                (lo, _port_path(d) if isinstance(d, (str, os.PathLike)) else d)
+                for lo, d in v]
+        elif isinstance(v, (str, os.PathLike)):
+            bound.arguments[name] = _port_path(v)
+    return list(bound.args), dict(bound.kwargs)
+
+
+def _port_plan(plan):
+    """The port's twin of a reference ``FaultPlan``: the same rules, fired
+    counts and random state, made the first time the plan crosses over."""
+    if plan not in _PLANS:
+        from repro_torch.io import faults as TF
+
+        out = TF.FaultPlan()
+        out.rng.setstate(plan.rng.getstate())
+        out._rules = [TF._Rule(r.kind, r.match, r.count, r.offset, r.nbytes, r.xor, r.keep)
+                      for r in plan._rules]
+        out.fired = dict(plan.fired)
+        _PLANS[plan] = out
+    return _PLANS[plan]
+
+
 def to_port(x, port_cfg: dict | None = None):
     """A reference-package value as the port takes it."""
     if isinstance(x, Twin):
@@ -47,6 +103,13 @@ def to_port(x, port_cfg: dict | None = None):
     if isinstance(x, enum.Enum):
         cls = _port_class(type(x))
         return x if cls is None else cls[x.name]
+    if type(x).__module__ == "repro.io.faults":
+        if type(x).__name__ == "FaultPlan":
+            return _port_plan(x)
+        if type(x).__name__ == "IOContext":
+            return _port_class(type(x))(
+                plan=None if x.plan is None else _port_plan(x.plan), retries=x.retries,
+                backoff_s=x.backoff_s, on_retry=x.on_retry, on_giveup=x.on_giveup)
     if dataclasses.is_dataclass(x) and not isinstance(x, type):
         cls = _port_class(type(x))
         if cls is None:
@@ -75,6 +138,17 @@ def to_port(x, port_cfg: dict | None = None):
             if k != "ops":
                 setattr(b, k, v)
         return b
+    return x
+
+
+def to_ref(x):
+    """A value as the reference takes it: Twins give their reference side."""
+    if isinstance(x, Twin):
+        return x.ref
+    if isinstance(x, (list, tuple)):
+        return type(x)(to_ref(v) for v in x)
+    if isinstance(x, dict):
+        return {k: to_ref(v) for k, v in x.items()}
     return x
 
 
@@ -110,9 +184,39 @@ def _found_vals(x):
     return x
 
 
+def _histogram(x):
+    """A metrics snapshot's histogram sample without its latency buckets."""
+    if isinstance(x, dict) and x.get("type") == "histogram" and "buckets" in x:
+        return {k: x[k] for k in ("name", "type", "labels", "count")}
+    return x
+
+
+# instruments a store registers when it runs device views: the port's twin
+# runs them where the reference's host path does not
+DEVICE_VIEW_METRICS = frozenset(
+    ("device_batches", "device_fallback_total", "device_rows_gathered", "hbm_resident_bytes"))
+
+
+def _metrics(a, b):
+    """Two ``metrics()`` snapshots with the port's device-view instruments
+    dropped where the reference has none of them."""
+    if isinstance(a, dict) and isinstance(b, dict) and set(a) == set(b) == {"metrics"}:
+        ref_names = {m["name"] for m in a["metrics"]}
+        b = dict(metrics=[m for m in b["metrics"]
+                          if m["name"] in ref_names or m["name"] not in DEVICE_VIEW_METRICS])
+    return a, b
+
+
+def _same_str(a: str, b: str) -> bool:
+    """Equal strings, or the same path under a twin directory."""
+    return a == b or (".port" in b and b.replace(".port", "") == a)
+
+
 def assert_same(a, b, where="value"):
     """Deep equality of a reference value and the port's."""
     a, b = _found_vals(a), _found_vals(b)
+    a, b = _histogram(a), _histogram(b)
+    a, b = _metrics(a, b)
     if (dataclasses.is_dataclass(a) and type(a).__name__ == "OpResult"
             and isinstance(a.found, np.ndarray)):
         a = dataclasses.replace(a, vals=_found_vals((a.found, a.vals))[1])
@@ -147,6 +251,8 @@ def assert_same(a, b, where="value"):
     elif isinstance(a, np.generic) or isinstance(b, np.generic):
         assert a == b and np.asarray(a).dtype == np.asarray(b).dtype, (
             f"{where}: {a!r} != {b!r}")
+    elif isinstance(a, str) and isinstance(b, str):
+        assert _same_str(a, b), f"{where}: {a!r} != {b!r}"
     else:
         assert a == b, f"{where}: {a!r} != {b!r}"
 
@@ -217,8 +323,8 @@ class Twin:
 
 def call_both(fr, fp, args, kw, where="call", port_cfg=None):
     """``fr(*args, **kw)`` and the port's ``fp`` on the same arguments."""
-    pargs = to_port(list(args), port_cfg)
-    pkw = to_port(dict(kw), port_cfg)
+    pargs, pkw = _port_paths(fr, to_port(list(args), port_cfg), to_port(dict(kw), port_cfg))
+    args, kw = to_ref(list(args)), to_ref(dict(kw))
     err_r = err_p = None
     try:
         out_r = fr(*args, **kw)
@@ -239,8 +345,9 @@ def call_both(fr, fp, args, kw, where="call", port_cfg=None):
 
 
 def pair_class(ref_cls, port_cfg=None):
-    """A twin of a reference class: instances made through it are Twins
-    (``pair_class(RemixDB)(cfg)``, ``pair_class(RemixDB).open(dir, cfg)``)."""
+    """A twin of a reference class or function: what it returns is a Twin
+    (``pair_class(RemixDB)(cfg)``, ``pair_class(RemixDB).open(dir, cfg)``,
+    ``pair_class(ship_snapshot)(db, dst_dir)``)."""
     port_cls = _port_class(ref_cls)
 
     class _Pair:
