@@ -86,6 +86,32 @@ Phases, each fatal on failure:
    the split back; (7) close and ``Cluster(lows=None)``: cold reads until
    every partition promotes, then promoted reads. Device memory around
    every topology change, beside each store's view bytes.
+8. paper — the paper's figures through the port's benchmarks
+   (``src/repro_torch/bench/``) with the reference benchmarks' shapes and
+   mix, every answer checked: fig11 / fig12 (weak / strong locality; R in
+   {1, 2, 4, 8, 16} tables of 2^18 keys; REMIX seek in both in-group
+   modes, Seek+Next50, get against the merging iterator and the
+   bloom-filtered get, each against a numpy oracle, the bloom's false
+   negatives counted: 0), fig13 (D in {16, 32, 64} at R = 8), table1,
+   fig14-16 (RemixDB, whose reads go through both kernels, against the
+   leveled and tiered stores at 4x the reference's keys, memtable and
+   table cap; every store held to the oracle after each load) and fig17
+   (YCSB A-F at 4x the keys, 3,000 ops each; the stores held to the
+   oracle after the load and after F, the baselines' scans after F to
+   their own ``scan`` per start). After each load, outside the counted
+   runs, both kernels against their plain versions bit for bit on the
+   RemixDB's resident views at the batches the figure sends (the check's
+   4,096-key get and 64 scans, fig14's 512 seek probes and fig15's 256
+   scan starts, fig17's 256-key gets and 64-start scans), timed after
+   fig14's 120B load and fig17's;
+   after F, the baselines' 64-start scan_batch over their memtable timed
+   beside one merging scan per start (the reference's algorithm). Then
+   the sharded get (``make_sharded_get`` over one NCCL rank per card at
+   ``RemixServiceConfig()``'s widths, 2^19 queries, half of them keys
+   stored on any shard) against the oracle under the over-capacity drop
+   rule and ``core.query.get``. Each timed row prints the reference's
+   CSV line and, from one profiled call, its device-busy µs and device
+   launches; then the paper's claims read off the rows.
 
 The last lines are one JSON object listing the kernels, the card's name
 and power limit from nvidia-smi, and ``{"ok": true, "device": ...}``.
@@ -157,6 +183,16 @@ FLEET_KEYS = 1 << 21
 FLEET_PUT_SHARE, FLEET_THETA, FLEET_PHASE_S = 0.25, 0.99, 5.0
 FLEET_FIRST = 16  # post-split batches reported apart (cold reads, promotion)
 FLEET_TAIL = 4096  # stage 5's put_batch into the replicated shard
+# phase 8: the paper's figures (src/repro_torch/bench/), with the
+# reference benchmarks' shapes and mix. fig11-13 tables of 2^18 keys, 16x
+# benchmarks/fig11_queries.py's 16,384 (the host builds of the tables took
+# phase 8 to 391 s at 2^20 and to 344 s at 2^19 on a slower host); fig14-17 keys, memtable and table cap x 4
+# (fig14-16: 480,000 keys, memtable and table_cap 32,768 against the
+# store defaults 2^18 and 65,536; fig17: 240,000 keys, OPS 3,000)
+PAPER_N_PER_TABLE = 1 << 18
+PAPER_TIMED = ("fig14 120B", "fig17 load")  # one store per G of phase 8's partitions
+PAPER_SCALE = 4
+PAPER_SEED = 1  # build_demo_state's draws for the sharded get
 DEV = "cuda"
 HBM_BPS = 3.35e12  # H100 SXM device memory, bytes/s
 INT32_LANES_PER_SM = 64  # Hopper SM: 4 partitions x 16 INT32 lanes (H100 whitepaper)
@@ -1134,16 +1170,9 @@ def hold_kernels(remix, runset, q, widths, what, err) -> None:
                       f"(N={rows.shape[0]})")
 
 
-def view_kernels(mgr, driven, card, tier="index tier", tag="index") -> tuple[dict, dict]:
-    """Both kernels on a path's own operands: each partition's uploaded
-    anchors and group tables (the index tier: padded G 2^19), the queries
-    as ``get_batch`` / ``scan_windows`` upload them (the index tier: Q 64
-    per scan slice, 256, 65,536), the group ids the seek produces and the
-    window's group ids; every case against its plain version bit for bit,
-    then the first partition's distinct shapes timed beside their bounds."""
-    from repro_torch.kernels import anchor_search as AS
-    from repro_torch.kernels import ops
-
+def hold_views(mgr, driven, tier, tag) -> dict:
+    """``hold_kernels`` on every partition's view and batch in ``driven``
+    (see ``view_kernels``); returns each kernel's max |err| (0)."""
     err = {"anchor_search": 0, "selector_decode": 0}
     cases = 0
     for v, batches in driven:
@@ -1154,7 +1183,20 @@ def view_kernels(mgr, driven, card, tier="index tier", tag="index") -> tuple[dic
         f"(anchors G {sorted({v.remix.g for v, _ in driven})}; Q "
         f"{sorted({len(k) for _, b in driven for _, k, _ in b})}; seek and window group "
         f"ids): {cases} cases bit-identical to the plain versions")
+    return err
 
+
+def view_kernels(mgr, driven, card, tier="index tier", tag="index") -> tuple[dict, dict]:
+    """Both kernels on a path's own operands: each partition's uploaded
+    anchors and group tables (the index tier: padded G 2^19), the queries
+    as ``get_batch`` / ``scan_windows`` upload them (the index tier: Q 64
+    per scan slice, 256, 65,536), the group ids the seek produces and the
+    window's group ids; every case against its plain version bit for bit,
+    then the first partition's distinct shapes timed beside their bounds."""
+    from repro_torch.kernels import anchor_search as AS
+    from repro_torch.kernels import ops
+
+    err = hold_views(mgr, driven, tier, tag)
     v, batches = driven[0]
     remix = v.remix
     floor = launch_floor(card)
@@ -1577,26 +1619,32 @@ def _store_operands(db, orc, rng):
     a 256-key and a 65,536-key get_batch and a 256-start scan_batch, routed
     to partitions as the store routes them (overlay keys included: the
     kernels' inputs, not the answers, are what is checked)."""
+    gets = {q: _store_probe(rng, orc, q) for q in (STORE_GET_SMALL, STORE_GET_LARGE)}
+    starts = np.sort(rng.choice(orc.live_keys, STORE_SCAN_Q)).astype(np.uint64)
+    width = STORE_SCAN_N + max(8, STORE_SCAN_N // 2)  # the store's scan window
+    return _view_batches(db, [(f"get, {STORE_GET_SMALL} keys", gets[STORE_GET_SMALL], 1),
+                              (f"get, {STORE_GET_LARGE:,} keys", gets[STORE_GET_LARGE], 1),
+                              (f"scan, {STORE_SCAN_Q} starts", starts, width)])
+
+
+def _view_batches(db, batches):
+    """(the store's view manager, [(view, batches)]): each partition's
+    resident view, largest first, with its share of ``batches`` (label,
+    keys, window width), routed as the store routes them."""
     from repro_torch.db.sharded import route_host
 
     parts = db.partitions
     lows = [p.lo for p in parts]
-    gets = {q: _store_probe(rng, orc, q) for q in (STORE_GET_SMALL, STORE_GET_LARGE)}
-    starts = np.sort(rng.choice(orc.live_keys, STORE_SCAN_Q)).astype(np.uint64)
-    width = STORE_SCAN_N + max(8, STORE_SCAN_N // 2)  # the store's scan window
     driven = []
-    order = sorted(range(len(parts)), key=lambda i: -parts[i].n_entries)
-    for i in order:
+    for i in sorted(range(len(parts)), key=lambda i: -parts[i].n_entries):
         v = db.device_views.view_for(parts[i])
         check(v is not None, "a promoted partition has no view")
-        batches = []
-        for label, keys, w in ((f"get, {STORE_GET_SMALL} keys", gets[STORE_GET_SMALL], 1),
-                               (f"get, {STORE_GET_LARGE:,} keys", gets[STORE_GET_LARGE], 1),
-                               (f"scan, {STORE_SCAN_Q} starts", starts, width)):
-            mine = keys[route_host(lows, keys) == i]
-            if len(mine):
-                batches.append((f"{label} ({len(mine)} to this partition)", mine, w))
-        driven.append((v, batches))
+        mine = []
+        for label, keys, w in batches:
+            sel = keys[route_host(lows, keys) == i]
+            if len(sel):
+                mine.append((f"{label} ({len(sel)} to this partition)", sel, w))
+        driven.append((v, mine))
     return db.device_views, driven
 
 
@@ -2302,6 +2350,249 @@ def phase_cluster(rng, root, card):
     return launches, shapes, err
 
 
+# ---------------------------------------------------------------- phase 8
+def _paper_claims(rows: list[str]) -> None:
+    """The paper's claims, read off this run's rows: the merging
+    iterator's time over REMIX's per R, and fig16's WA order."""
+    val = {}  # row name (with its R= / D=) -> (us_per_call, derived)
+    for line in rows:
+        parts = line.split(",")
+        k = 2 if "=" in parts[1] else 1
+        val[",".join(parts[:k])] = (float(parts[k]), ",".join(parts[k + 1:]))
+    for fig in ("fig11", "fig12"):
+        for what, merge, remix in (
+                ("seek", "a_seek_merging", "a_seek_remix_vector"),
+                ("seek (full in-group search)", "a_seek_merging", "a_seek_remix_full"),
+                ("Seek+Next50", "b_next50_merging", "b_next50_remix"),
+                ("get with bloom", "c_get_sstable_bloom", "c_get_remix"),
+                ("get without bloom", "c_get_sstable_nobloom", "c_get_remix")):
+            ratios = [f"R={r}: {val[f'{fig}{merge},R={r}'][0] / val[f'{fig}{remix},R={r}'][0]:.2f}x"
+                      for r in (1, 2, 4, 8, 16) if f"{fig}{remix},R={r}" in val]
+            log(f"[paper] {fig} {what}: merging iterator / REMIX time per op, {', '.join(ratios)}")
+    wa = {k.rsplit("_", 1)[1]: float(v[1].split("=")[1]) for k, v in val.items()
+          if k.startswith("fig16_write_120B_")}
+    log(f"[paper] fig16 write amplification: {wa}; tiered < RemixDB < leveled: "
+        f"{wa.get('tiered', 0) < wa.get('remixdb', 0) < wa.get('leveled', 0)}")
+
+
+def _demo_oracle(shards):
+    """Every shard's stored keys, sorted, and the run each key's value comes
+    from (a key in two runs of a shard: the later run)."""
+    from repro_torch.core import keys as CK
+    from repro_torch.device import u32_np
+
+    keys, runs = [], []
+    for _, runset in shards:
+        kk = CK.unpack_u64(u32_np(runset.keys)).reshape(-1)
+        lens = runset.lens.cpu().numpy()
+        run = np.repeat(np.arange(runset.r), runset.nmax)
+        live = (np.arange(runset.nmax)[None, :] < lens[:, None]).reshape(-1)
+        keys.append(kk[live])
+        runs.append(run[live])
+    keys, run = np.concatenate(keys), np.concatenate(runs)
+    order = np.lexsort((-run, keys))
+    keys, run = keys[order], run[order]
+    first = np.ones(len(keys), bool)
+    first[1:] = keys[1:] != keys[:-1]
+    return keys[first], run[first]
+
+
+def _sharded_dropped(q64, world) -> np.ndarray:
+    """The queries of one rank's slice that ``make_sharded_get`` drops:
+    past ``cap = max(1, 2 * nq // world)`` per owner shard, and the last
+    one that fits where an owner overflowed."""
+    nq = len(q64)
+    cap = max(1, 2 * nq // world)
+    owner = np.minimum((q64 >> np.uint64(32)) // np.uint64((1 << 32) // world),
+                       np.uint64(world - 1))
+    drop = np.zeros(nq, bool)
+    for s in range(world):
+        idx = np.flatnonzero(owner == s)
+        if len(idx) > cap:
+            drop[idx[cap - 1:]] = True
+    return drop
+
+
+def _sharded_rank(rank, world, init, out, cfg=None):
+    """One rank of the sharded get: its shard of ``build_demo_state`` at
+    ``cfg``'s widths (``RemixServiceConfig()``) and its slice of the
+    query batch, half of it keys stored on any shard and half misses,
+    through ``make_sharded_get`` over NCCL (gloo off the card); answers
+    held to a numpy oracle of every shard's keys under the drop rule and,
+    in a world of one, to ``core.query.get`` on the same shard."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.bench.common import CSV, time_batched
+    from repro_torch.configs.remixdb import RemixServiceConfig
+    from repro_torch.core import keys as CK
+    from repro_torch.core import query as Q
+    from repro_torch.db.sharded import build_demo_state, make_sharded_get
+    from repro_torch.device import as_words, u32_np
+
+    dev = f"cuda:{rank}" if DEV == "cuda" else DEV
+    if DEV == "cuda":
+        torch.cuda.set_device(rank)
+    dist.init_process_group("nccl" if DEV == "cuda" else "gloo", init_method=init,
+                            rank=rank, world_size=world)
+    try:
+        cfg = cfg or RemixServiceConfig()
+        t0 = time.perf_counter()
+        shards = build_demo_state(cfg, world, seed=PAPER_SEED, device=dev)
+        remix, runset = shards[rank]
+        build_s = time.perf_counter() - t0
+        keys, run = _demo_oracle(shards)
+        del shards
+        nq = cfg.query_batch // world
+        rng = np.random.default_rng(rank)
+        hit = rng.choice(keys, nq // 2)
+        q64 = np.concatenate([hit, hit + np.uint64(1)])  # demo keys end in 26 zero bits
+        queries = as_words(CK.pack_u64(q64), dev)
+        step, n = make_sharded_get(cfg)
+        check(n == world, f"sharded get: {n} shards in a world of {world}")
+        csv = CSV(profile=DEV == "cuda")
+        t = time_batched(step, remix, runset, queries)
+        csv.emit(f"sharded_get_world={world}_rank={rank}", t / nq * 1e6,
+                 f"{nq} queries/rank, R={cfg.runs_per_partition} x "
+                 f"{cfg.entries_per_run}, D={cfg.group_d}, build {build_s:.1f}s",
+                 call=lambda: step(remix, runset, queries), wall_s=t)
+        found, vals = step(remix, runset, queries)
+        found, vals = found.cpu().numpy(), u32_np(vals)
+        drop = _sharded_dropped(q64, world)
+        want = np.zeros(nq, bool)
+        want[: nq // 2] = True
+        want &= ~drop
+        check(np.array_equal(found, want), f"sharded get rank {rank}: "
+              f"{int((found != want).sum())} of {nq} found wrong")
+        at = np.searchsorted(keys, q64[want])
+        lo = (q64[want] & np.uint64(0xFFFFFFFF)).astype(np.uint32)
+        check(np.array_equal(vals[want, 0], lo) and
+              np.array_equal(vals[want, -1], run[at].astype(np.uint32)),
+              f"sharded get rank {rank}: values of stored keys wrong")
+        if world == 1:
+            f2, v2 = Q.get(remix, runset, queries)
+            check(np.array_equal(f2.cpu().numpy(), found)
+                  and np.array_equal(u32_np(v2), vals),
+                  "sharded get: differs from core.query.get on the same shard")
+        owner = (q64 >> np.uint64(32)) // np.uint64((1 << 32) // world)
+        off = int((np.minimum(owner, world - 1) != rank).sum())
+        log(f"[paper] sharded get rank {rank}/{world}: {nq} queries ({nq // 2} stored, "
+            f"{nq // 2} missing; {off} owned by other ranks; {int(drop.sum())} over "
+            "capacity, dropped) held to the oracle" +
+            (" and to core.query.get" if world == 1 else ""))
+        if out is not None:
+            out.extend(csv.rows)
+    finally:
+        dist.destroy_process_group()
+
+
+def _paper_observer(card, shapes, err):
+    """The figure benchmarks' ``observe``: after each load, both kernels on
+    the RemixDB's resident views at the batches the figure sends them, bit
+    for bit against the plain versions (``hold_views``; timed as well
+    after the loads in ``PAPER_TIMED``: ``view_kernels``), with those
+    launches taken back off the counts (they are not the path's); where a baseline's scans go through its memtable overlay,
+    a 64-start scan_batch timed beside one merging scan per start, the
+    reference's algorithm."""
+    from repro_torch.bench.common import sync
+    from repro_torch.kernels import anchor_search as AS
+    from repro_torch.kernels import selector_decode as SD
+
+    def observe(tag, stores, batches):
+        before = _launch_counts()
+        mgr, driven = _view_batches(stores["remixdb"], [
+            (label, keys, 1 if n is None else n + max(8, n // 2))  # the store's window
+            for label, keys, n in batches])
+        if tag in PAPER_TIMED:
+            got, e = view_kernels(mgr, driven, card, tier=f"{tag} RemixDB", tag="paper")
+        else:
+            got, e = {k: [] for k in shapes}, hold_views(mgr, driven, f"{tag} RemixDB", "paper")
+        del mgr, driven
+        AS.anchor_search.launches = before["anchor_search"]
+        SD.selector_decode.launches = before["selector_decode"]
+        for k in shapes:
+            shapes[k] += got[k]
+            err[k] = max(err[k], e[k])
+        starts = [k for label, k, n in batches if label.startswith("scan50 64")]
+        for name in ("leveled", "tiered"):
+            s = stores[name]
+            if not (starts and len(s.mem)):
+                continue
+            ts = []
+            for _ in range(3):
+                sync()
+                t0 = time.perf_counter()
+                s.scan_batch(starts[0], 50)
+                sync()
+                ts.append(time.perf_counter() - t0)
+            t0 = time.perf_counter()
+            for x in starts[0].tolist():
+                s.scan(x, 50)
+            sync()
+            a, b = float(np.median(ts)) * 1e3, (time.perf_counter() - t0) * 1e3
+            log(f"[paper] {card}: {tag} {name}: a 64-start Seek+Next50 scan_batch over a "
+                f"memtable of {len(s.mem)} entries: the port's batched overlay (median of 3) "
+                f"{a:.3f} ms; one merging scan per start (the reference's algorithm, once) "
+                f"{b:.3f} ms, {b / a:.2f}x")
+
+    return observe
+
+
+def phase_paper(card) -> tuple[dict, dict, dict]:
+    """The paper's figures on the card through the port's benchmarks (see the
+    module docstring, phase 8); returns the kernels' launches over the
+    store-level figures (the REMIX-level figures call the plain engine),
+    and their shapes and errors on the RemixDB's operands after each load."""
+    import socket
+
+    import torch
+
+    from repro_torch.bench import (common, fig11_queries, fig13_groupsize, fig14_16_stores,
+                                   fig17_ycsb, table1_storage)
+
+    t_phase = time.perf_counter()
+    csv = common.CSV(profile=True)
+    launches = {k: 0 for k in _launch_counts()}
+    shapes = {k: [] for k in launches}
+    err = {k: 0 for k in launches}
+    observe = _paper_observer(card, shapes, err) if DEV == "cuda" else None
+    log(f"[paper] {card}: fig11-13 at {PAPER_N_PER_TABLE} keys per table, "
+        f"fig14-17 at scale {PAPER_SCALE}; rows: name,us_per_call,derived")
+
+    def timed(name, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        log(f"[paper] {name} done in {time.perf_counter() - t0:.1f} s")
+        return out
+
+    for loc in ("weak", "strong"):
+        timed(f"fig1{1 if loc == 'weak' else 2}", lambda: fig11_queries.run(
+            csv, locality=loc, n_per_table=PAPER_N_PER_TABLE, device=DEV,
+            check_answers=True))
+    timed("fig13", lambda: fig13_groupsize.run(csv, n_per_table=PAPER_N_PER_TABLE,
+                                               device=DEV))
+    timed("table1", lambda: table1_storage.run(csv, device=DEV))
+    timed("fig14_16", lambda: run_counted("paper", "fig14-16", lambda: fig14_16_stores.run(
+        csv, scale=PAPER_SCALE, device=DEV, check_answers=True, observe=observe), launches))
+    timed("fig17", lambda: run_counted("paper", "fig17", lambda: fig17_ycsb.run(
+        csv, scale=PAPER_SCALE, device=DEV, check_answers=True, observe=observe), launches))
+    world = torch.cuda.device_count() if DEV == "cuda" else 1
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        init = f"tcp://localhost:{sock.getsockname()[1]}"
+    if world == 1:
+        timed("sharded get", lambda: _sharded_rank(0, 1, init, csv.rows))
+    else:
+        import torch.multiprocessing as mp
+
+        timed("sharded get", lambda: mp.spawn(_sharded_rank, args=(world, init, None),
+                                              nprocs=world))
+    _paper_claims(csv.rows)
+    log(f"[paper] phase 8 ran {time.perf_counter() - t_phase:.1f} s; kernel launches "
+        f"from the stores' reads {launches}")
+    return launches, shapes, err
+
+
 def smi() -> str:
     p = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -2347,15 +2638,19 @@ def main() -> int:
             store_launches, store_shapes, store_err = phase_store(rng, root, card)
         with tempfile.TemporaryDirectory() as root:
             fleet_launches, fleet_shapes, fleet_err = phase_cluster(rng, root, card)
-        launches = {k: n + store_launches[k] + fleet_launches[k] for k, n in launches.items()}
+        paper_launches, paper_shapes, paper_err = phase_paper(card)
+        launches = {k: n + store_launches[k] + fleet_launches[k] + paper_launches[k]
+                    for k, n in launches.items()}
         for t in timings:
-            t["shapes"] += idx_shapes[t["name"]] + store_shapes[t["name"]] + fleet_shapes[t["name"]]
-            t["max_abs_err"] = max(t["max_abs_err"], idx_err[t["name"]],
-                                   store_err[t["name"]], fleet_err[t["name"]])
+            t["shapes"] += (idx_shapes[t["name"]] + store_shapes[t["name"]]
+                            + fleet_shapes[t["name"]] + paper_shapes[t["name"]])
+            t["max_abs_err"] = max(t["max_abs_err"], idx_err[t["name"]], store_err[t["name"]],
+                                   fleet_err[t["name"]], paper_err[t["name"]])
         log(f"[device] peak allocated {max(peak, torch.cuda.max_memory_allocated())} bytes")
-        log(f"[device] launches over all phases {launches} (phase 7: {fleet_launches}); "
+        log(f"[device] launches over all phases {launches} (phase 7: {fleet_launches}, "
+            f"phase 8: {paper_launches}); "
             f"script ran {time.perf_counter() - t_script:.1f} s")
-    except Fail as e:
+    except (Fail, AssertionError) as e:
         print(f"chip_smoke.py: FAILED: {e}", file=sys.stderr)
         return 1
     # top-level times: each kernel's first shape; "shapes" holds them all

@@ -11,10 +11,10 @@
                 cross-shard fan-out, async futures
   - store:      the RemixDB public API
   - scrub:      integrity scrub, rate limiter, REMIX rebuild from CKBs
-  - sharded:    host-side range routing (the mesh-sharded half is not
-                ported yet)
-
-The paper's baselines (``sstable``, ``baseline``) are not ported yet.
+  - sharded:    range routing, and the store sharded over the ranks of a
+                process group (``all_to_all_single`` query exchange)
+  - sstable:    baseline SSTable metadata (block index + bloom filters)
+  - baseline:   LevelDB-like leveled / tiered comparison stores
 """
 from repro_torch.db.cursor import RemixCursor  # noqa: F401
 from repro_torch.db.executor import Executor  # noqa: F401

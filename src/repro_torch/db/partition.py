@@ -1318,6 +1318,16 @@ class Partition:
             self._remix, self._runset = _pad_index(remix, runset, d)
         return self._remix, self._runset
 
+    def release_device(self) -> None:
+        """Free this partition's device memory: drop the padded index
+        that :meth:`index` built and move the last built REMIX to the
+        host, where the next build finds it again (as after recovery)."""
+        self._remix = None
+        self._runset = None
+        self._host = None
+        if self._built_remix is not None:
+            self._built_remix = _to_device(self._built_remix, torch.device("cpu"))
+
     def _build_dead(self, t: Table, now: float) -> np.ndarray:
         """Liveness column baked into the runset for table ``t``:
         tombstones, TTL-expired rows, and rows an excised span covers."""

@@ -686,7 +686,8 @@ class RemixDB:
 
     def close(self) -> None:
         """Flush WAL buffers and, in persistent mode, commit a manifest so
-        reopening needs no tail scan. The MemTable stays in the WAL."""
+        reopening needs no tail scan. The MemTable stays in the WAL. Frees
+        the store's device views and its partitions' device indexes."""
         if self._scrub_thread is not None:
             self._scrub_stop.set()
             self._scrub_thread.join(timeout=5.0)
@@ -701,6 +702,15 @@ class RemixDB:
             self.wal.release_quarantine()
             self._gc_files()
         self.events.close()
+        # release the card now: a store sits in reference cycles, so its
+        # views and indexes would otherwise wait for the cyclic collector
+        # (the reference keeps them until gc.collect()). A partition read
+        # after close() rebuilds its index lazily.
+        if self.device_views is not None:
+            self.device_views.clear()
+        for v in self.versions.live_versions():
+            for p in v.partitions:
+                p.release_device()
 
     # ---------------- durability: scrub / repair / health ----------------
     def scrub(self, full: bool = True, repair: bool = True) -> dict:

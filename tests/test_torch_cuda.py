@@ -322,3 +322,109 @@ def test_cluster_on_card_matches_cpu(card, tmp_path):
     finally:
         for c in fleets:
             c.close()
+
+
+def _held_after_close(card, root, release: bool) -> tuple[int, int, int]:
+    """Device bytes a store holds while open, after ``close()`` and
+    ``del`` with the cyclic collector off, and after ``gc.collect()``.
+    ``release=False`` runs ``close()`` as the reference's does: views and
+    indexes are not released."""
+    import gc
+
+    from repro_torch.db.compaction import CompactionConfig
+    from repro_torch.db.partition import Partition
+    from repro_torch.db.store import RemixDB, RemixDBConfig
+    from repro_torch.kernels.device_view import DeviceViewManager
+
+    gc.collect()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(card)
+    saved = Partition.release_device, DeviceViewManager.clear
+    if not release:
+        Partition.release_device = DeviceViewManager.clear = lambda self: None
+    gc.disable()
+    try:
+        db = RemixDB(RemixDBConfig(
+            vw=4, memtable_entries=1 << 30, wal_dir=str(root), device=str(card),
+            compaction=CompactionConfig(table_cap=4096, t_max=6)))
+        keys = np.arange(20_000, dtype=np.uint64) * 11
+        db.put_batch(keys, np.zeros((len(keys), 4), np.uint32))
+        db.flush()
+        db.get_batch(keys[::7])
+        db.scan_batch(keys[::997], 50)
+        for p in db.partitions:
+            p.index()
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated(card) - base
+        db.close()
+        del db, p
+        torch.cuda.synchronize()
+        left = torch.cuda.memory_allocated(card) - base
+    finally:
+        gc.enable()
+        Partition.release_device, DeviceViewManager.clear = saved
+    gc.collect()
+    torch.cuda.synchronize()
+    return held, left, torch.cuda.memory_allocated(card) - base
+
+
+def test_close_frees_device_memory_without_gc(card, tmp_path):
+    """After ``RemixDB.close()`` and ``del``, ``memory_allocated`` is back
+    at its base with no ``gc.collect()``: close() drops the views and each
+    partition's device index and moves its last built REMIX to the host.
+
+    A divergence kept on record: the reference's ``close()`` releases
+    neither, and a store sits in reference cycles, so its device memory
+    waits for the collector. The same store closed that way holds its
+    memory past ``del`` until ``gc.collect()`` (asserted below)."""
+    _held_after_close(card, tmp_path / "warm", True)  # lazy one-time buffers
+    held, left, _ = _held_after_close(card, tmp_path / "port", True)
+    assert held > 0 and left == 0, (held, left)
+    held, left, after_gc = _held_after_close(card, tmp_path / "ref", False)
+    assert left > 0 and after_gc == 0, (held, left, after_gc)
+
+
+def test_baselines_on_card_match_cpu(card):
+    """The merging iterator, the bloom probe and both baseline stores on
+    the card answer as on the CPU, bit for bit."""
+    from repro_torch.core import merge_iter as M
+    from repro_torch.core.bloom import bloom_maybe_contains, build_bloom
+    from repro_torch.core.runs import make_run, stack_runs
+    from repro_torch.db.baseline import BaselineConfig, LeveledStore, TieredStore
+
+    rng = np.random.default_rng(5)
+    runs = {}
+    for dev in ("cpu", card):
+        rr = np.random.default_rng(6)
+        runs[str(dev)] = [make_run(np.sort(rr.choice(1 << 20, 5000, replace=False)
+                                           .astype(np.uint64) << np.uint64(33)),
+                                   seq=i, tomb=rr.random(5000) < 0.1, device=dev)
+                          for i in range(6)]
+    q = (rng.integers(0, 1 << 20, 2048).astype(np.uint64) << np.uint64(33))
+    qw = np.stack([(q >> np.uint64(32)).astype(np.uint32), (q & np.uint64(0xFFFFFFFF))
+                   .astype(np.uint32)], 1)
+    out = {}
+    for dev, rr in runs.items():
+        rs, qt = stack_runs(rr), as_words(qw, dev)
+        bf = build_bloom([r.keys for r in rr], device=dev)
+        out[dev] = [t.cpu() for t in (M.seek_cursors(rs, qt), *M.merge_get(rs, qt),
+                                      *M.merge_scan(rs, qt[:256], 64),
+                                      bloom_maybe_contains(bf, qt))]
+    for a, b in zip(out["cpu"], out[str(card)]):
+        assert torch.equal(a, b)
+    for cls in (LeveledStore, TieredStore):
+        stores = [cls(BaselineConfig(memtable_entries=4096, table_cap=4096,
+                                     device=str(dev))) for dev in ("cpu", card)]
+        keys = rng.permutation(40_000).astype(np.uint64) * 8
+        for s in stores:
+            for c in range(0, len(keys), 4096):
+                s.put_batch(keys[c:c + 4096], np.zeros((4096, 2), np.uint32)[: len(keys[c:c + 4096])])
+            s.put(int(keys[3]) + 1, np.ones(2, np.uint32))
+        probe = np.concatenate([keys[:1000], keys[:1000] + 1])
+        a, b = (s.get_batch(probe) for s in stores)
+        np.testing.assert_array_equal(a[0], b[0])
+        np.testing.assert_array_equal(a[1], b[1])
+        a, b = (s.scan_batch(keys[:64], 50) for s in stores)
+        np.testing.assert_array_equal(a[0], b[0])
+        np.testing.assert_array_equal(a[1], b[1])
+        assert stores[1].table_bytes_written == stores[0].table_bytes_written

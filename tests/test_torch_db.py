@@ -418,3 +418,62 @@ def test_store_imports_with_jax_and_repro_blocked():
                          timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "repro_torch.db.store"
+
+
+def _closed_store_refs(pkg, tmp_path, device_path):
+    """A store with resident device views and built partition indexes:
+    (weakrefs to a view tensor and to each partition's index tensors,
+    answers before close(), answers after close()); the store is closed
+    and deleted, and the cyclic collector is off throughout."""
+    import gc
+    import weakref
+
+    from repro.db.compaction import CompactionConfig as RCC
+
+    store_mod = __import__(f"{pkg}.db.store", fromlist=["RemixDB"])
+    comp = RCC(table_cap=256, t_max=6)
+    if pkg == "repro_torch":
+        comp = TC.CompactionConfig(table_cap=256, t_max=6)
+    kw = dict(device="cpu") if pkg == "repro_torch" else {}
+    db = store_mod.RemixDB(store_mod.RemixDBConfig(
+        memtable_entries=1 << 30, wal_dir=str(tmp_path), compaction=comp,
+        device_path=device_path, **kw))
+    keys = np.arange(3000, dtype=np.uint64) * 7
+    db.put_batch(keys, np.stack([keys & 0xFFFF, keys >> 3], 1).astype(np.uint32))
+    db.flush()
+    probe = np.concatenate([keys[::5], keys[:50] + 1])
+    before = db.get_batch(probe), db.scan_batch(keys[::300], 20)
+    # the stacked runs of each view and of each partition's index (on the
+    # CPU the last built REMIX stays where it is: it is the host copy)
+    refs = [weakref.ref(v.runset.keys) for v in db.device_views._views.values()]
+    for p in db.partitions:
+        remix, runset = p.index()
+        refs.append(weakref.ref(runset.keys))
+    assert len(refs) >= 2
+    gc.disable()
+    try:
+        db.close()
+        after = db.get_batch(probe), db.scan_batch(keys[::300], 20)
+        del db, p, remix, runset
+        alive = [r() is not None for r in refs]
+    finally:
+        gc.enable()
+    gc.collect()
+    return alive, [r() is not None for r in refs], before, after
+
+
+def test_close_frees_device_views_and_indexes_without_gc(tmp_path):
+    """``RemixDB.close()`` releases the device views and every partition's
+    device index at once: with the cyclic collector off, nothing is left
+    after ``close()`` and ``del``. A read after ``close()`` rebuilds its
+    index and answers as before.
+
+    A divergence kept on record: the reference's ``close()`` releases
+    neither, and its store sits in reference cycles, so its device arrays
+    wait for ``gc.collect()`` (asserted below)."""
+    alive, _, before, after = _closed_store_refs("repro_torch", tmp_path / "p", "on")
+    assert not any(alive), alive
+    for a, b in zip(before, after):
+        assert_same(a, b, "read after close()")
+    ref_alive, ref_after_gc, _, _ = _closed_store_refs("repro", tmp_path / "r", "on")
+    assert all(ref_alive) and not any(ref_after_gc)

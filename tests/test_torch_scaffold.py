@@ -37,7 +37,14 @@ def test_port_imports_neither_jax_nor_repro():
     assert len(MODULES) >= 15
     assert {"repro_torch.serve", "repro_torch.serve.engine", "repro_torch.cluster",
             "repro_torch.cluster.cluster", "repro_torch.cluster.replica",
-            "repro_torch.cluster.ship", "repro_torch.cluster.placement"} <= set(MODULES)
+            "repro_torch.cluster.ship", "repro_torch.cluster.placement",
+            "repro_torch.core.bloom", "repro_torch.core.merge_iter",
+            "repro_torch.db.baseline", "repro_torch.db.sstable",
+            "repro_torch.db.sharded", "repro_torch.configs.remixdb",
+            "repro_torch.bench.common", "repro_torch.bench.fig11_queries",
+            "repro_torch.bench.fig13_groupsize", "repro_torch.bench.table1_storage",
+            "repro_torch.bench.fig14_16_stores", "repro_torch.bench.fig17_ycsb",
+            "repro_torch.bench.run"} <= set(MODULES)
 
 
 FORBIDDEN = re.compile(
@@ -65,8 +72,14 @@ def test_forbidden_pattern_tells_repro_from_repro_torch():
 
 def _entry_points():
     """Each entry point, called with a scratch directory."""
+    from repro_torch.bench.common import make_tables, qkeys
     from repro_torch.cluster import Cluster
+    from repro_torch.configs.remixdb import RemixServiceConfig
+    from repro_torch.core.bloom import build_bloom
     from repro_torch.core.remix import remix_from_arrays, remix_from_order
+    from repro_torch.db.baseline import LeveledStore, TieredStore
+    from repro_torch.db.sharded import build_demo_state
+    from repro_torch.db.sstable import SSTableMeta
     from repro_torch.core.runs import make_run, runset_from_arrays
     from repro_torch.db.partition import Partition
     from repro_torch.db.store import RemixDB
@@ -87,6 +100,14 @@ def _entry_points():
         "remix_from_arrays": lambda tmp: remix_from_arrays(k, one[:, None], np.zeros(8, np.uint8), 1, 8),
         "runset_from_arrays": lambda tmp: runset_from_arrays(k[None], k[None], one[None], one[None] > 0, one),
         "remix_from_order": lambda tmp: remix_from_order(one, one, one > -1, [k], 8),
+        "build_bloom": lambda tmp: build_bloom([k]),
+        "SSTableMeta.build": lambda tmp: SSTableMeta.build(np.arange(4, dtype=np.uint64), 24),
+        "LeveledStore": lambda tmp: LeveledStore(),
+        "TieredStore": lambda tmp: TieredStore(),
+        "build_demo_state": lambda tmp: build_demo_state(
+            RemixServiceConfig(entries_per_run=8, runs_per_partition=1), 2),
+        "make_tables": lambda tmp: make_tables(1, 8),
+        "qkeys": lambda tmp: qkeys(np.random.default_rng(0), 100, 4),
     }
 
 

@@ -126,6 +126,7 @@ def to_port(x, port_cfg: dict | None = None):
                 # the reference's "auto" is its legacy path on the CPU;
                 # the port's twin drives the device views (plain kernels)
                 kw["device_path"] = "on"
+        if cls.__name__ in ("RemixDBConfig", "BaselineConfig"):
             kw.update(port_cfg or PORT_CPU)
         out = cls(**kw)
         for f in dataclasses.fields(x):
