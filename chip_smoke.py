@@ -112,6 +112,21 @@ Phases, each fatal on failure:
    rule and ``core.query.get``. Each timed row prints the reference's
    CSV line and, from one profiled call, its device-busy µs and device
    launches; then the paper's claims read off the rows.
+9. LLM serving — qwen2.5-3b at its published widths (36 layers, d_model
+   2048, 16 heads, 2 KV heads, head_dim 128, d_ff 11008, vocab 151,936;
+   float32 params from a seeded generator on the card, bfloat16
+   activations) through the port's ``ServeEngine``: the traffic of
+   ``examples/serve_llm_prefix_cache.py`` once without and once with the
+   REMIX-indexed ``PrefixCache`` (the same tokens, tokens reused, cache
+   hits); time to first token and ms per decoded token, page-table
+   lookups, one profiled decode step (device busy, idle share, launches)
+   beside its bytes bound, peak device bytes. Checks: teacher-forced
+   ``decode_step`` logits against ``forward`` at full width in float32
+   (argmax equal at every position); one arch of each family at 2 layers,
+   a forward and two decode steps on the card against the CPU; the page
+   table's ``lookup_batch`` on the card against a dict over 5 generations
+   with a tiered merge. No kernel of ``csrc/`` is on this path (the
+   counts are printed).
 
 The last lines are one JSON object listing the kernels, the card's name
 and power limit from nvidia-smi, and ``{"ok": true, "device": ...}``.
@@ -193,6 +208,26 @@ PAPER_N_PER_TABLE = 1 << 18
 PAPER_TIMED = ("fig14 120B", "fig17 load")  # one store per G of phase 8's partitions
 PAPER_SCALE = 4
 PAPER_SEED = 1  # build_demo_state's draws for the sharded get
+# phase 9: LLM serving at qwen2.5-3b's published widths
+# (src/repro/configs/qwen2_5_3b.py) with random weights from a seed;
+# traffic as examples/serve_llm_prefix_cache.py: 6 requests of a shared
+# 48-token system prompt + 12 distinct tokens, 12 new tokens each,
+# max_seq 128, PrefixCache(n_pages=256, page_size=16) (24 pages
+# registered: the ring never wraps)
+LLM_ARCH = "qwen2.5-3b"
+LLM_REQUESTS, LLM_SHARED, LLM_TAIL, LLM_MAX_NEW, LLM_MAX_SEQ = 6, 48, 12, 12, 128
+LLM_PAGES, LLM_PAGE = 256, 16
+LLM_CHECK_TOKENS = 16  # decode against forward, float32
+LLM_FAMILIES = ("qwen2.5-3b", "minicpm3-4b", "qwen3-moe-235b-a22b", "mamba2-130m",
+                "zamba2-2.7b", "seamless-m4t-medium", "gemma2-27b")
+# decode_step against forward at full width, float32 caches: the two sum
+# each product in another order (a 1-row and a 16-row GEMM), ~1e-6
+# relative a layer over 36 layers; |logits| ~ 5. TF32 products (2^-11
+# relative) or bfloat16 ones would exceed it
+LLM_DECODE_ATOL = 2e-4
+# each family on the card against the CPU, float32 (2 layers): the
+# card's float32 GEMMs sum in another order than the CPU's; |logits| ~ 1.5
+LLM_FAMILY_ATOL = 1e-4
 DEV = "cuda"
 HBM_BPS = 3.35e12  # H100 SXM device memory, bytes/s
 INT32_LANES_PER_SM = 64  # Hopper SM: 4 partitions x 16 INT32 lanes (H100 whitepaper)
@@ -801,7 +836,7 @@ def profile_batches(label, fn, n):
     busy_us = sum(e.time_range.end - e.time_range.start for e in kern)
     if not kern:
         log(f"[profile] {label}: the profiler saw no device time (not measured)")
-        return
+        return None
     by_name = {}
     for e in kern:
         c, t = by_name.get(e.name, (0, 0.0))
@@ -811,6 +846,7 @@ def profile_batches(label, fn, n):
         f"{1 - busy_us / wall_us:.3f}, {len(kern) / n:.1f} kernels/batch")
     for name, (c, t) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:8]:
         log(f"[profile]   {t / n:9.2f} us/batch  x{c // n:<3d} {name[:90]}")
+    return dict(wall_us=wall_us / n, busy_us=busy_us / n, launches=len(kern) / n)
 
 
 def phase_end_to_end(rng, mgr, views, domains, starts, card):
@@ -2593,6 +2629,236 @@ def phase_paper(card) -> tuple[dict, dict, dict]:
     return launches, shapes, err
 
 
+# ---------------------------------------------------------------- phase 9
+def _llm_requests(rng, vocab):
+    shared = rng.integers(0, vocab, LLM_SHARED).astype(np.int32)
+    return [np.concatenate([shared, rng.integers(0, vocab, LLM_TAIL).astype(np.int32)])
+            for _ in range(LLM_REQUESTS)]
+
+
+def _serve_timed(eng, requests):
+    """Each request through ``eng.generate``: its tokens, time to first
+    token and ms per decoded token. The first token is read on the host
+    (one sync) before the first decode call at ``pos == len(prompt)``; each
+    later token is read before the next decode call."""
+    import torch
+
+    marks = []
+    decode = eng._decode
+
+    def mark(cache, tok, pos):
+        marks.append((pos, time.perf_counter()))
+        return decode(cache, tok, pos)
+
+    eng._decode = mark
+    outs, ttft, per_tok = [], [], []
+    try:
+        for prompt in requests:
+            marks.clear()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            outs.append(eng.generate(prompt, max_new=LLM_MAX_NEW))
+            t1 = time.perf_counter()
+            t_first = next(t for pos, t in marks if pos == len(prompt))
+            ttft.append((t_first - t0) * 1e3)
+            per_tok.append((t1 - t_first) * 1e3 / LLM_MAX_NEW)
+    finally:
+        del eng._decode
+    return outs, ttft, per_tok
+
+
+def _spread(xs) -> str:
+    return f"{np.median(xs):.3f} [{min(xs):.3f}-{max(xs):.3f}]"
+
+
+def _llm_decode_against_forward(cfg, params, rng, card):
+    """Teacher-forced ``decode_step`` logits against ``forward`` at full
+    width in float32 (float32 caches); argmax equal at every position."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.models import model as LM
+
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    tokens = torch.as_tensor(rng.integers(0, cfg.vocab, (1, LLM_CHECK_TOKENS)), device=DEV)
+    full = LM.forward(cfg32, params, dict(tokens=tokens))[0]
+    cache = LM.init_cache(cfg32, 1, LLM_CHECK_TOKENS, dtype=torch.float32, device=DEV)
+    steps = []
+    for t in range(LLM_CHECK_TOKENS):
+        logits, cache = LM.decode_step(cfg32, params, cache, tokens[:, t], t)
+        steps.append(logits[0])
+    dec = torch.stack(steps)
+    err = float((dec - full).abs().max())
+    agree = int((dec.argmax(-1) == full.argmax(-1)).sum())
+    log(f"[llm] {card}: decode_step against forward, {LLM_CHECK_TOKENS} tokens at full "
+        f"width in float32: max abs err {err:.3e} (|logits| max {float(full.abs().max()):.3f}, "
+        f"tolerance {LLM_DECODE_ATOL}), argmax equal at {agree}/{LLM_CHECK_TOKENS} positions")
+    check(bool(torch.isfinite(dec).all()) and err <= LLM_DECODE_ATOL,
+          f"decode against forward: max abs err {err} > {LLM_DECODE_ATOL}")
+    check(agree == LLM_CHECK_TOKENS, f"decode against forward: argmax differs ({agree})")
+
+
+def _llm_families(card):
+    """One arch of each family at 2 layers, float32: a forward and two
+    decode steps on the card against the same calls on the CPU."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.models import model as LM
+    from repro_torch.models.layers import split_params, tree_map
+
+    for arch in LLM_FAMILIES:
+        cfg = dataclasses.replace(reduced(get_config(arch), n_layers=2), dtype="float32")
+        params = split_params(LM.init_params(cfg, 0, device="cpu"))[0]
+        r = np.random.default_rng(0)
+        tokens = torch.as_tensor(r.integers(0, cfg.vocab, (2, 16)))
+        batch = dict(tokens=tokens)
+        if cfg.family == "encdec":
+            batch["frontend"] = torch.as_tensor(r.normal(size=(2, 16, cfg.d_model)),
+                                                dtype=torch.float32)
+        out = {}
+        for dev in ("cpu", DEV):
+            p = tree_map(lambda t: t.to(dev), params)
+            got = [LM.forward(cfg, p, {k: v.to(dev) for k, v in batch.items()})]
+            cache = LM.init_cache(cfg, 2, 8, dtype=torch.float32, device=dev)
+            for pos in range(2):
+                lg, cache = LM.decode_step(cfg, p, cache, tokens[:, pos].to(dev), pos)
+                got.append(lg)
+            out[dev] = [t.cpu() for t in got]
+        err = max(float((a - b).abs().max()) for a, b in zip(out["cpu"], out[DEV]))
+        log(f"[llm] {card}: {arch} ({cfg.family}, 2 layers, float32) forward + 2 decode "
+            f"steps, card against CPU: max abs err {err:.3e} (tolerance {LLM_FAMILY_ATOL})")
+        check(all(bool(torch.isfinite(t).all()) for t in out[DEV]) and err <= LLM_FAMILY_ATOL,
+              f"{arch} on the card: max abs err {err} > {LLM_FAMILY_ATOL}")
+
+
+def _llm_page_table(rng, card):
+    """``lookup_batch`` on the card against a dict over 5 generations, with
+    a tiered merge (``max_runs=4``)."""
+    from repro_torch.models.kvcache import RemixPageTable
+
+    table = RemixPageTable(d=8, max_runs=4, device=DEV)
+    oracle = {}
+    for _ in range(5):
+        for _ in range(400):
+            h = int(rng.integers(0, 2**63))
+            slot, ln = int(rng.integers(0, 1000)), int(rng.integers(1, 100))
+            table.add(np.uint64(h), slot, ln)
+            oracle[h] = (slot, ln)
+        table.flush_generation()
+    check(len(table.runs) < 5, "page table: the tiered merge did not run")
+    probes = list(oracle)[::3] + [int(x) for x in rng.integers(0, 2**63, 64)]
+    found, slots, lens = table.lookup_batch(np.array(probes, np.uint64))
+    for i, h in enumerate(probes):
+        want = oracle.get(h)
+        check(bool(found[i]) == (want is not None)
+              and (want is None or (int(slots[i]), int(lens[i])) == want),
+              f"page table: probe {i} answered {found[i], slots[i], lens[i]}, oracle {want}")
+    log(f"[llm] {card}: page table on the card, {len(probes)} lookups over 5 "
+        f"generations ({len(table.runs)} runs after the merge) equal the dict")
+
+
+def phase_llm(rng, card):
+    """LLM serving at qwen2.5-3b's published widths (module docstring,
+    phase 9)."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as LM
+    from repro_torch.models.kvcache import PrefixCache
+    from repro_torch.models.layers import split_params, tree_leaves
+    from repro_torch.serve import ServeEngine
+
+    t_phase = time.perf_counter()
+    cfg = get_config(LLM_ARCH)
+    check((cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd, cfg.d_ff,
+           cfg.vocab, cfg.qkv_bias, cfg.rope_theta, cfg.dtype, cfg.param_dtype)
+          == (36, 2048, 16, 2, 128, 11008, 151936, True, 1e6, "bfloat16", "float32"),
+          f"{LLM_ARCH}: not the published widths: {cfg}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=DEV).manual_seed(int(rng.integers(1 << 31)))
+    params = split_params(LM.init_params(cfg, gen, device=DEV))[0]
+    torch.cuda.synchronize()
+    leaves = tree_leaves(params)
+    n_params = sum(t.numel() for t in leaves)
+    w_params = sum(t.numel() for t in leaves if t.ndim >= 2)
+    log(f"[llm] {card}: {LLM_ARCH} at its published widths, {n_params:,} params "
+        f"({sum(t.numel() * t.element_size() for t in leaves):,} bytes, "
+        f"{'/'.join(sorted({str(t.dtype)[6:] for t in leaves}))}), "
+        f"initialised on the card in {time.perf_counter() - t0:.2f} s")
+
+    launches0 = _launch_counts()
+    requests = _llm_requests(rng, cfg.vocab)
+    plain = ServeEngine(cfg, params, max_seq=LLM_MAX_SEQ, device=DEV)
+    plain.generate(requests[0][:LLM_PAGE], max_new=2)  # first-call set-up, not timed
+    plain.stats = type(plain.stats)()
+    outs_plain, ttft_p, tok_p = _serve_timed(plain, requests)
+    cache = PrefixCache(cfg, n_pages=LLM_PAGES, page_size=LLM_PAGE, device=DEV)
+    cached = ServeEngine(cfg, params, max_seq=LLM_MAX_SEQ, prefix_cache=cache, device=DEV)
+    outs_cached, ttft_c, tok_c = _serve_timed(cached, requests)
+    for i, (a, b) in enumerate(zip(outs_plain, outs_cached)):
+        check(np.array_equal(a, b), f"request {i}: the prefix cache changed the tokens: {a} {b}")
+    st_p, st_c = plain.stats, cached.stats
+    check(st_c.cached_tokens > 0 and cache.hits >= 1,
+          f"the prefix cache reused nothing: {st_c}, hits {cache.hits}")
+    check(cache.next_slot <= LLM_PAGES, "the page ring wrapped")
+    launched = {k: n - launches0[k] for k, n in _launch_counts().items()}
+    log(f"[llm] {card}: {LLM_REQUESTS} requests x ({LLM_SHARED} shared + {LLM_TAIL}) "
+        f"tokens, {LLM_MAX_NEW} new each: tokens identical with and without the cache; "
+        f"first request {outs_plain[0].tolist()}")
+    log(f"[llm] {card}: without cache: time to first token {_spread(ttft_p)} ms, "
+        f"{_spread(tok_p)} ms per decoded token, prefill tokens computed "
+        f"{st_p.prefill_tokens}")
+    log(f"[llm] {card}: with cache: time to first token {_spread(ttft_c)} ms "
+        f"(requests 2-{LLM_REQUESTS}: {_spread(ttft_c[1:])}), {_spread(tok_c)} ms per "
+        f"decoded token, prefill tokens computed {st_c.prefill_tokens}, reused "
+        f"{st_c.cached_tokens}, hits {cache.hits}, misses {cache.misses}, pages "
+        f"{cache.next_slot} of {LLM_PAGES}; kernel launches of csrc/ on this path "
+        f"{launched}")
+
+    hashes = np.array([int(x) for x in rng.integers(0, 2**63, LLM_SHARED // LLM_PAGE)],
+                      np.uint64)
+    lk = []
+    for _ in range(25):
+        t0 = time.perf_counter()
+        cache.table.lookup_batch(hashes)
+        lk.append((time.perf_counter() - t0) * 1e6)
+    log(f"[llm] {card}: page-table lookup_batch of {len(hashes)} hashes over "
+        f"{len(cache.table.runs)} runs: {_spread(lk[5:])} us (host clock, ends in a copy "
+        f"to the host)")
+
+    kv = LM.init_cache(cfg, 1, LLM_MAX_SEQ, device=DEV)
+    tok = torch.zeros(1, dtype=torch.long, device=DEV)
+    step = lambda: LM.decode_step(cfg, params, kv, tok, LLM_SHARED)  # noqa: E731
+    prof = profile_batches(f"{card}: {LLM_ARCH} decode_step", step, 5)
+    weight_bytes = 4 * w_params
+    bound_f32 = (weight_bytes + 2 * w_params) / HBM_BPS * 1e3
+    bound_bf16 = 2 * w_params / HBM_BPS * 1e3
+    if prof is not None:
+        log(f"[llm] {card}: one decode step: {prof['wall_us'] / 1e3:.3f} ms wall, "
+            f"{prof['busy_us'] / 1e3:.3f} ms device busy, idle share "
+            f"{1 - prof['busy_us'] / prof['wall_us']:.3f}, {prof['launches']:.0f} device "
+            f"launches; bytes bound {bound_f32:.3f} ms (float32 weights read "
+            f"{weight_bytes:,} B + their bfloat16 casts written {2 * w_params:,} B at "
+            f"{HBM_BPS / 1e12} TB/s), {bound_bf16:.3f} ms with bfloat16 weights")
+    peak = torch.cuda.max_memory_allocated()
+    log(f"[llm] {card}: peak device bytes {peak:,} ({peak - base:,} above the phase's "
+        f"start)")
+
+    _llm_decode_against_forward(cfg, params, rng, card)
+    del params, plain, cached, cache, kv
+    torch.cuda.empty_cache()
+    _llm_families(card)
+    _llm_page_table(rng, card)
+    log(f"[llm] phase 9 ran {time.perf_counter() - t_phase:.1f} s")
+
+
 def smi() -> str:
     p = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -2639,6 +2905,8 @@ def main() -> int:
         with tempfile.TemporaryDirectory() as root:
             fleet_launches, fleet_shapes, fleet_err = phase_cluster(rng, root, card)
         paper_launches, paper_shapes, paper_err = phase_paper(card)
+        peak = max(peak, torch.cuda.max_memory_allocated())  # phase 9 resets the peak
+        phase_llm(rng, card)
         launches = {k: n + store_launches[k] + fleet_launches[k] + paper_launches[k]
                     for k, n in launches.items()}
         for t in timings:

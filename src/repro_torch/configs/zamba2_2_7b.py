@@ -1,0 +1,22 @@
+"""zamba2-2.7b [hybrid]: Mamba2 backbone + one shared attention block applied
+periodically. [arXiv:2411.15242; hf]."""
+from repro_torch.configs.base import ModelConfig
+
+CONFIG = ModelConfig(
+    name="zamba2-2.7b",
+    family="hybrid",
+    n_layers=54,
+    d_model=2560,
+    n_heads=32,
+    n_kv_heads=32,
+    d_ff=10240,
+    vocab=32000,
+    head_dim=80,
+    ssm_state=64,
+    ssm_head_dim=64,
+    ssm_expand=2,
+    conv_width=4,
+    ssm_chunk=64,
+    attn_every=6,  # shared attention block every 6 mamba layers
+    supports_long_context=True,
+)

@@ -1,0 +1,439 @@
+"""Model assembly per architecture family: init / forward / prefill / decode.
+
+All families stack their repeated block over a leading 'layers' axis, as
+the reference does; where it scans the stack with ``lax.scan`` the port
+loops over the leading axis in Python. Params are ``Param(value,
+logical_axes)`` trees at init; the entry points consume the raw value
+tree (see ``split_params``). :class:`LanguageModel` wraps a value tree in
+an ``nn.Module`` so ``.to()`` and ``state_dict()`` work; the functions
+stay the API.
+
+Decode caches are updated in place: ``decode_step`` writes the new
+position into the cache's tensors and returns a dict of the same tensors
+(the reference returns updated copies).
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+from torch import nn
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.device import resolve
+from repro_torch.models import layers as L
+from repro_torch.models.sharding import shard
+
+
+# ------------------------------------------------------------------ init
+def _stack_layers(inits):
+    """Stack per-layer Param trees along a new leading 'layers' axis."""
+    first = inits[0]
+    if isinstance(first, dict):
+        return {k: _stack_layers([t[k] for t in inits]) for k in first}
+    return L.Param(torch.stack([p.value for p in inits]), ("layers",) + first.axes)
+
+
+def _init_block(cfg: ModelConfig, gen):
+    p = dict(ln_attn=L.zeros(gen, (cfg.d_model,), (None,)))
+    if cfg.family == "mla":
+        p["attn"] = L.init_mla(cfg, gen)
+    elif cfg.family != "ssm":
+        p["attn"] = L.init_attention(cfg, gen)
+    p["ln_mlp"] = L.zeros(gen, (cfg.d_model,), (None,))
+    if cfg.family == "moe":
+        p["moe"] = L.init_moe(cfg, gen)
+        if cfg.dense_ff_parallel and cfg.d_ff:
+            p["mlp"] = L.init_mlp(cfg, gen)
+    elif cfg.d_ff:
+        p["mlp"] = L.init_mlp(cfg, gen)
+    if cfg.post_norms:
+        p["ln_attn_post"] = L.zeros(gen, (cfg.d_model,), (None,))
+        p["ln_mlp_post"] = L.zeros(gen, (cfg.d_model,), (None,))
+    return p
+
+
+def _init_mamba_block(cfg: ModelConfig, gen):
+    return dict(
+        ln=L.zeros(gen, (cfg.d_model,), (None,)),
+        mamba=L.init_mamba(cfg, gen),
+    )
+
+
+def _generator(gen, device: torch.device) -> torch.Generator:
+    if isinstance(gen, torch.Generator):
+        if gen.device.type != device.type:
+            raise ValueError(f"generator on {gen.device}, params asked on {device}")
+        return gen
+    return torch.Generator(device=device).manual_seed(int(gen))
+
+
+def init_params(cfg: ModelConfig, gen, device="cuda"):
+    """Random params (a ``Param`` tree) drawn from ``gen`` — a
+    ``torch.Generator`` on ``device``, or an int seed for one."""
+    gen = _generator(gen, resolve(device))
+    params = dict(
+        embed=L.mk(gen, (cfg.vocab, cfg.d_model), ("vocab", "fsdp"), scale=0.02),
+        final_norm=L.zeros(gen, (cfg.d_model,), (None,)),
+    )
+    if not cfg.tie_embeddings:
+        params["unembed"] = L.mk(
+            gen, (cfg.d_model, cfg.vocab), ("fsdp", "vocab"), scale=0.02
+        )
+    if cfg.family in ("dense", "mla", "moe"):
+        params["blocks"] = _stack_layers(
+            [_init_block(cfg, gen) for _ in range(cfg.n_layers)]
+        )
+    elif cfg.family in ("ssm", "hybrid"):
+        params["blocks"] = _stack_layers(
+            [_init_mamba_block(cfg, gen) for _ in range(cfg.n_layers)]
+        )
+        if cfg.family == "hybrid":
+            params["shared_attn"] = _init_block(cfg, gen)
+    elif cfg.family == "encdec":
+        params["enc_blocks"] = _stack_layers(
+            [_init_block(cfg, gen) for _ in range(cfg.enc_layers)]
+        )
+        dec = []
+        for _ in range(cfg.dec_layers):
+            blk = _init_block(cfg, gen)
+            blk["cross"] = L.init_attention(cfg, gen)
+            blk["ln_cross"] = L.zeros(gen, (cfg.d_model,), (None,))
+            dec.append(blk)
+        params["dec_blocks"] = _stack_layers(dec)
+        params["enc_norm"] = L.zeros(gen, (cfg.d_model,), (None,))
+    else:
+        raise ValueError(cfg.family)
+    if cfg.param_dtype == "bfloat16":
+        # store weight matrices in bf16; 1-D params (norm scales, biases,
+        # a_log) stay f32 for stability
+        params = L.tree_map(
+            lambda p: (
+                L.Param(p.value.to(torch.bfloat16), p.axes)
+                if p.value.dtype == torch.float32 and p.value.ndim >= 2
+                else p
+            ),
+            params,
+        )
+    return params
+
+
+def _layer(blocks, i: int):
+    """Layer ``i`` of a stacked tree (views, no copy)."""
+    return L.tree_map(lambda a: a[i], blocks)
+
+
+def _n_layers(blocks) -> int:
+    return L.tree_leaves(blocks)[0].shape[0]
+
+
+# ------------------------------------------------------------------ blocks
+def _dense_block(cfg: ModelConfig, p, x, positions, layer_idx: int, enc_out=None):
+    """One transformer block (train/prefill). Handles gemma2 alternation:
+    even layers local, odd layers global."""
+    window = None
+    if cfg.window is not None:
+        window = cfg.window if layer_idx % 2 == 0 else 1 << 30
+    h = L.rmsnorm(x, p["ln_attn"], cfg.norm_eps)
+    if cfg.family == "mla":
+        a, _ = L.mla_attention(cfg, p["attn"], h, positions)
+    else:
+        a = L.attention(cfg, p["attn"], h, positions, causal=True, window=window)
+    if cfg.post_norms:
+        a = L.rmsnorm(a, p["ln_attn_post"], cfg.norm_eps)
+    x = x + a
+    if "cross" in p and enc_out is not None:
+        h = L.rmsnorm(x, p["ln_cross"], cfg.norm_eps)
+        c = L.attention(
+            cfg, p["cross"], h, positions, causal=False,
+            kv_override=(enc_out, enc_out),
+        )
+        x = x + c
+    h = L.rmsnorm(x, p["ln_mlp"], cfg.norm_eps)
+    if cfg.family == "moe":
+        m = L.moe(cfg, p["moe"], h)
+        if cfg.dense_ff_parallel and "mlp" in p:
+            m = m + L.mlp(cfg, p["mlp"], h)
+    else:
+        m = L.mlp(cfg, p["mlp"], h)
+    if cfg.post_norms:
+        m = L.rmsnorm(m, p["ln_mlp_post"], cfg.norm_eps)
+    return x + m
+
+
+# ------------------------------------------------------------------ forward
+def _embed_tokens(cfg, params, tokens):
+    x = params["embed"][tokens].to(L.cdtype(cfg))
+    if cfg.name.startswith("gemma2"):
+        x = x * L.scalar(math.sqrt(cfg.d_model), x)
+    return shard(x, "batch", "seq", "embed")
+
+
+def _logits(cfg, params, x):
+    x = L.rmsnorm(x, params["final_norm"], cfg.norm_eps)
+    w = (
+        params["embed"].T if cfg.tie_embeddings else params["unembed"]
+    ).to(x.dtype)
+    logits = x @ w
+    logits = L.softcap(logits.float(), cfg.final_softcap)
+    return shard(logits, "batch", "seq", "vocab")
+
+
+def _scan_blocks(cfg, blocks, x, positions, enc_out=None):
+    is_mamba = "mamba" in blocks  # ssm / hybrid backbone blocks
+    for i in range(_n_layers(blocks)):
+        bp = _layer(blocks, i)
+        if is_mamba:
+            h = L.rmsnorm(x, bp["ln"], cfg.norm_eps)
+            y, _ = L.mamba_forward(cfg, bp["mamba"], h)
+            x = x + y
+        else:
+            x = _dense_block(cfg, bp, x, positions, i, enc_out=enc_out)
+    return x
+
+
+def _positions(n: int, like: torch.Tensor) -> torch.Tensor:
+    return torch.arange(n, device=like.device)[None, :]
+
+
+def forward(cfg: ModelConfig, params, batch):
+    """Forward → logits. batch: dict(tokens, [frontend])."""
+    if cfg.family == "encdec":
+        enc_x = batch["frontend"].to(L.cdtype(cfg))  # (B,S,D) stub frames
+        enc_x = _scan_blocks(
+            cfg, params["enc_blocks"], enc_x, _positions(enc_x.shape[1], enc_x)
+        )
+        enc_out = L.rmsnorm(enc_x, params["enc_norm"], cfg.norm_eps)
+        tokens = batch["tokens"]
+        x = _embed_tokens(cfg, params, tokens)
+        x = _scan_blocks(
+            cfg, params["dec_blocks"], x, _positions(tokens.shape[1], x),
+            enc_out=enc_out,
+        )
+        return _logits(cfg, params, x)
+    tokens = batch["tokens"]
+    x = _embed_tokens(cfg, params, tokens)
+    if cfg.frontend == "vlm" and "frontend" in batch:
+        fe = batch["frontend"].to(x.dtype)  # (B, P, D) patch embeddings
+        x = torch.cat([fe, x], dim=1)
+    positions = _positions(x.shape[1], x)
+    if cfg.family == "hybrid":
+        x = _hybrid_forward(cfg, params, x, positions)
+    else:
+        x = _scan_blocks(cfg, params["blocks"], x, positions)
+    return _logits(cfg, params, x)
+
+
+def _hybrid_forward(cfg, params, x, positions):
+    """zamba2: groups of mamba layers + one SHARED attention block."""
+    per = cfg.attn_every
+    n_groups = cfg.n_layers // per
+    for i in range(n_groups):
+        sub = L.tree_map(lambda a: a[i * per : (i + 1) * per], params["blocks"])
+        x = _scan_blocks(cfg, sub, x, positions)
+        x = _dense_block(cfg, params["shared_attn"], x, positions, 1)
+    rem = cfg.n_layers - n_groups * per
+    if rem:
+        sub = L.tree_map(lambda a: a[-rem:], params["blocks"])
+        x = _scan_blocks(cfg, sub, x, positions)
+    return x
+
+
+# ------------------------------------------------------------------ serving
+def init_cache(cfg: ModelConfig, batch: int, seq: int, dtype=torch.bfloat16,
+               device="cuda"):
+    """Decode cache per family, zeroed on ``device``."""
+    device = resolve(device)
+    hd = cfg.hd
+
+    def z(shape, dt=dtype):
+        return torch.zeros(shape, dtype=dt, device=device)
+
+    if cfg.family in ("dense", "moe"):
+        shape = (cfg.n_layers, batch, seq, cfg.n_kv_heads, hd)
+        return dict(k=z(shape), v=z(shape))
+    if cfg.family == "mla":
+        return dict(latent=z((cfg.n_layers, batch, seq, cfg.kv_lora + cfg.qk_rope)))
+    if cfg.family in ("ssm", "hybrid"):
+        cache = dict(
+            state=z(
+                (cfg.n_layers, batch, cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state),
+                torch.float32,
+            ),
+            conv=z(
+                (cfg.n_layers, batch, cfg.conv_width - 1, cfg.d_inner + 2 * cfg.ssm_state)
+            ),
+        )
+        if cfg.family == "hybrid":
+            n_groups = cfg.n_layers // cfg.attn_every
+            cache["k"] = z((n_groups, batch, seq, cfg.n_kv_heads, hd))
+            cache["v"] = z((n_groups, batch, seq, cfg.n_kv_heads, hd))
+        return cache
+    if cfg.family == "encdec":
+        shape = (cfg.dec_layers, batch, seq, cfg.n_kv_heads, hd)
+        # cross-attention K/V are projected ONCE from the encoder output at
+        # prefill time and cached
+        return dict(k=z(shape), v=z(shape), cross_k=z(shape), cross_v=z(shape))
+    raise ValueError(cfg.family)
+
+
+def encdec_prepare_cross(cfg: ModelConfig, params, enc_out):
+    """Project encoder output to per-layer cross K/V caches (prefill)."""
+    hd = cfg.hd
+    b, s, _ = enc_out.shape
+    blocks = params["dec_blocks"]
+    ks, vs = [], []
+    for i in range(_n_layers(blocks)):
+        cross = _layer(blocks, i)["cross"]
+        ks.append((enc_out @ cross["wk"].to(enc_out.dtype)).reshape(b, s, cfg.n_kv_heads, hd))
+        vs.append((enc_out @ cross["wv"].to(enc_out.dtype)).reshape(b, s, cfg.n_kv_heads, hd))
+    return torch.stack(ks), torch.stack(vs)
+
+
+def _mamba_decode_layers(cfg, blocks, x, cache, lo: int):
+    """Mamba decode over the stacked ``blocks``, on cache layers from ``lo``."""
+    for i in range(_n_layers(blocks)):
+        bp = _layer(blocks, i)
+        h = L.rmsnorm(x, bp["ln"], cfg.norm_eps)
+        y, st, cv = L.mamba_decode(
+            cfg, bp["mamba"], h, cache["state"][lo + i], cache["conv"][lo + i]
+        )
+        if cv.dtype != cache["conv"].dtype:
+            # the reference's scan carries the state in the promoted dtype
+            cache["conv"] = cache["conv"].to(cv.dtype)
+        cache["state"][lo + i] = st
+        cache["conv"][lo + i] = cv
+        x = x + y
+    return x
+
+
+def decode_step(cfg: ModelConfig, params, cache, token, pos: int):
+    """One decode step. token: (B,) int → (logits (B,V), cache).
+
+    The cache's tensors are written at ``pos`` in place; encdec reads its
+    cross K/V from the cache (``encdec_prepare_cross``).
+    """
+    x = params["embed"][token].to(L.cdtype(cfg))
+    if cfg.name.startswith("gemma2"):
+        x = x * L.scalar(math.sqrt(cfg.d_model), x)
+    x = shard(x, "batch", "embed")
+
+    if cfg.family in ("dense", "moe"):
+        for i in range(cfg.n_layers):
+            bp = _layer(params["blocks"], i)
+            window = None
+            if cfg.window is not None:
+                window = cfg.window if i % 2 == 0 else 1 << 30
+            h = L.rmsnorm(x, bp["ln_attn"], cfg.norm_eps)
+            a, _, _ = L.attention_decode(
+                cfg, bp["attn"], h, cache["k"][i], cache["v"][i], pos, window=window
+            )
+            if cfg.post_norms:
+                a = L.rmsnorm(a, bp["ln_attn_post"], cfg.norm_eps)
+            x2 = x + a
+            h = L.rmsnorm(x2, bp["ln_mlp"], cfg.norm_eps)
+            if cfg.family == "moe":
+                m = L.moe(cfg, bp["moe"], h[:, None, :])[:, 0]
+                if cfg.dense_ff_parallel and "mlp" in bp:
+                    m = m + L.mlp(cfg, bp["mlp"], h)
+            else:
+                m = L.mlp(cfg, bp["mlp"], h)
+            if cfg.post_norms:
+                m = L.rmsnorm(m, bp["ln_mlp_post"], cfg.norm_eps)
+            x = x2 + m
+    elif cfg.family == "mla":
+        for i in range(cfg.n_layers):
+            bp = _layer(params["blocks"], i)
+            h = L.rmsnorm(x, bp["ln_attn"], cfg.norm_eps)
+            a, _ = L.mla_attention(
+                cfg, bp["attn"], h[:, None, :], None,
+                decode_cache=cache["latent"][i], pos=pos,
+            )
+            x2 = x + a
+            h = L.rmsnorm(x2, bp["ln_mlp"], cfg.norm_eps)
+            x = x2 + L.mlp(cfg, bp["mlp"], h)
+    elif cfg.family == "ssm":
+        x = _mamba_decode_layers(cfg, params["blocks"], x, cache, 0)
+    elif cfg.family == "hybrid":
+        per = cfg.attn_every
+        for g in range(cfg.n_layers // per):
+            sub = L.tree_map(lambda a: a[g * per : (g + 1) * per], params["blocks"])
+            x = _mamba_decode_layers(cfg, sub, x, cache, g * per)
+            bp = params["shared_attn"]
+            h = L.rmsnorm(x, bp["ln_attn"], cfg.norm_eps)
+            a, _, _ = L.attention_decode(
+                cfg, bp["attn"], h, cache["k"][g], cache["v"][g], pos
+            )
+            x = x + a
+            h = L.rmsnorm(x, bp["ln_mlp"], cfg.norm_eps)
+            x = x + L.mlp(cfg, bp["mlp"], h)
+    elif cfg.family == "encdec":
+        hd = cfg.hd
+        for i in range(cfg.dec_layers):
+            bp = _layer(params["dec_blocks"], i)
+            h = L.rmsnorm(x, bp["ln_attn"], cfg.norm_eps)
+            a, _, _ = L.attention_decode(
+                cfg, bp["attn"], h, cache["k"][i], cache["v"][i], pos
+            )
+            x2 = x + a
+            h = L.rmsnorm(x2, bp["ln_cross"], cfg.norm_eps)
+            q = (h @ bp["cross"]["wq"].to(h.dtype)).reshape(-1, cfg.n_heads, hd)
+            ck, cv = cache["cross_k"][i], cache["cross_v"][i]
+            c = L.decode_attention(q, ck, cv, pos=ck.shape[1] - 1)
+            c = c.reshape(-1, cfg.n_heads * hd) @ bp["cross"]["wo"].to(h.dtype)
+            x2 = x2 + c
+            h = L.rmsnorm(x2, bp["ln_mlp"], cfg.norm_eps)
+            x = x2 + L.mlp(cfg, bp["mlp"], h)
+    else:
+        raise ValueError(cfg.family)
+
+    logits = _logits(cfg, params, x[:, None, :])[:, 0]
+    return logits, dict(cache)
+
+
+def prefill(cfg: ModelConfig, params, batch):
+    """Prefill: full forward returning last-position logits (cache writes are
+    exercised by decode_step)."""
+    return forward(cfg, params, batch)[:, -1]
+
+
+# ------------------------------------------------------------------ module
+class _Tree(nn.Module):
+    """One level of a param tree: sub-dicts as submodules, tensors as
+    (frozen) parameters, in the tree's key order."""
+
+    def __init__(self, tree: dict):
+        super().__init__()
+        self.keys = list(tree)
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                self.add_module(k, _Tree(v))
+            else:
+                self.register_parameter(k, nn.Parameter(v, requires_grad=False))
+
+    def values(self) -> dict:
+        return {
+            k: self._modules[k].values() if k in self._modules else self._parameters[k]
+            for k in self.keys
+        }
+
+
+class LanguageModel(nn.Module):
+    """A value tree as an ``nn.Module``: ``.to()``, ``state_dict()`` and
+    ``parameters()`` see every tensor; ``params`` gives the tree back for
+    the functional entry points."""
+
+    def __init__(self, cfg: ModelConfig, params: dict):
+        super().__init__()
+        self.cfg = cfg
+        self.tree = _Tree(params)
+
+    @property
+    def params(self) -> dict:
+        return self.tree.values()
+
+    def forward(self, batch):
+        return forward(self.cfg, self.params, batch)
+
+    def decode_step(self, cache, token, pos: int):
+        return decode_step(self.cfg, self.params, cache, token, pos)

@@ -1,1 +1,1 @@
-from repro_torch.serve.engine import KVServeEngine  # noqa: F401
+from repro_torch.serve.engine import KVServeEngine, ServeEngine, ServeStats  # noqa: F401

@@ -1,15 +1,18 @@
-"""The KV-store serving front, carried from ``repro.serve.engine``.
+"""Serving engines: the LLM batch engine and the KV-store front-end.
 
-:class:`KVServeEngine` fronts one or more persistent
-:class:`repro_torch.db.store.RemixDB` shards with a **single block cache
-shared across every partition of every shard**, so cold-start queries on
-any shard warm the same bytes-budgeted pool and the operator gets one
-hit/miss/eviction view of the whole serving node. Each shard keeps its
-own device views on its own device (``RemixDBConfig.device``, the card
-by default).
+:class:`ServeEngine` drives the model serving pipeline (prefix cache +
+prefill + decode): longest-prefix match (REMIX batched lookup) → copy
+cached KV pages into the decode cache → prefill the uncached suffix →
+greedy decode → register new pages. With or without the prefix cache the
+outputs are the same tokens; the cache only removes recomputation.
 
-The reference module also holds the LLM batch engine (``ServeEngine``,
-``ServeStats``); it needs the model stack and is not ported yet.
+:class:`KVServeEngine`, carried from ``repro.serve.engine``, fronts one or
+more persistent :class:`repro_torch.db.store.RemixDB` shards with a
+**single block cache shared across every partition of every shard**, so
+cold-start queries on any shard warm the same bytes-budgeted pool and the
+operator gets one hit/miss/eviction view of the whole serving node. Each
+shard keeps its own device views on its own device
+(``RemixDBConfig.device``, the card by default).
 """
 from __future__ import annotations
 
@@ -17,6 +20,89 @@ import bisect
 import dataclasses
 
 import numpy as np
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.device import resolve
+from repro_torch.models import model as M
+from repro_torch.models.kvcache import PrefixCache
+from repro_torch.models.layers import tree_map
+
+
+@dataclasses.dataclass
+class ServeStats:
+    requests: int = 0
+    prefill_tokens: int = 0
+    cached_tokens: int = 0
+    decoded_tokens: int = 0
+
+
+class ServeEngine:
+    """Greedy LLM serving over ``decode_step``, with an optional
+    :class:`PrefixCache` (dense and moe families).
+
+    ``params`` is a value tree; it is moved to ``device`` (the card by
+    default), where the decode cache lives too.
+    """
+
+    def __init__(
+        self, cfg: ModelConfig, params, max_seq: int = 256,
+        prefix_cache: PrefixCache | None = None, device="cuda",
+    ):
+        self.device = resolve(device)
+        self.cfg = cfg
+        self.params = tree_map(lambda t: t.to(self.device), params)
+        self.max_seq = max_seq
+        self.prefix = prefix_cache
+        self.stats = ServeStats()
+
+    def _decode(self, cache, tok: torch.Tensor, pos: int):
+        return M.decode_step(self.cfg, self.params, cache, tok, pos)
+
+    def _prefill_tokens(self, cache, tokens: torch.Tensor, start: int):
+        """Teacher-forced decode_step loop over the uncached suffix."""
+        logits = None
+        for t in range(start, len(tokens)):
+            logits, cache = self._decode(cache, tokens[t : t + 1], t)
+        return logits, cache
+
+    def generate(self, prompt: np.ndarray, max_new: int = 16) -> np.ndarray:
+        """Greedy generation for one request (batch=1 internally)."""
+        cfg = self.cfg
+        self.stats.requests += 1
+        cache = M.init_cache(cfg, 1, self.max_seq, device=self.device)
+        use_prefix = self.prefix is not None and cfg.family in ("dense", "moe")
+        start = 0
+        if use_prefix:
+            n_cached, slots = self.prefix.match(prompt)
+            if n_cached == len(prompt):
+                # a fully cached prompt still prefills its last page: the
+                # first new token needs that position's logits
+                n_cached -= self.prefix.page_size
+                slots = slots[:-1]
+            if n_cached:
+                k, v = self.prefix.gather(slots)  # (L, n, KVH, hd) float16
+                # float16 -> float32 -> cache dtype, the reference's casts
+                cache["k"][:, 0, :n_cached] = k.float().to(cache["k"].dtype)
+                cache["v"][:, 0, :n_cached] = v.float().to(cache["v"].dtype)
+                start = n_cached
+                self.stats.cached_tokens += n_cached
+        toks = torch.as_tensor(np.asarray(prompt), device=self.device)
+        logits, cache = self._prefill_tokens(cache, toks, start)
+        self.stats.prefill_tokens += len(prompt) - start
+        out = []
+        pos = len(prompt)
+        tok = torch.argmax(logits[0]).reshape(1)
+        for _ in range(max_new):
+            out.append(int(tok))
+            logits, cache = self._decode(cache, tok, pos)
+            pos += 1
+            tok = torch.argmax(logits[0]).reshape(1)
+        if use_prefix:
+            full = np.concatenate([prompt, np.array(out, prompt.dtype)])
+            self.prefix.register(full, cache["k"][:, 0], cache["v"][:, 0])
+        self.stats.decoded_tokens += len(out)
+        return np.array(out, np.int32)
 
 
 class KVServeEngine:

@@ -428,3 +428,88 @@ def test_baselines_on_card_match_cpu(card):
         np.testing.assert_array_equal(a[0], b[0])
         np.testing.assert_array_equal(a[1], b[1])
         assert stores[1].table_bytes_written == stores[0].table_bytes_written
+
+
+FAMILY_ARCHS = ["qwen2.5-3b", "minicpm3-4b", "qwen3-moe-235b-a22b", "mamba2-130m",
+                "zamba2-2.7b", "seamless-m4t-medium", "gemma2-27b"]
+
+
+@pytest.mark.parametrize("arch", FAMILY_ARCHS)
+def test_llm_family_on_card_matches_cpu(card, arch):
+    """A forward and two decode steps of one arch per family, float32, on
+    the card against the CPU: 1e-3 absolute on logits (|logits| ~1.5; the
+    card's float32 matmuls sum in another order)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.models import model as LM
+    from repro_torch.models.layers import split_params, tree_map
+
+    cfg = dataclasses.replace(reduced(get_config(arch), n_layers=2), dtype="float32")
+    params = split_params(LM.init_params(cfg, 0, device="cpu"))[0]
+    rng = np.random.default_rng(0)
+    tokens = torch.as_tensor(rng.integers(0, cfg.vocab, (2, 16)))
+    batch = dict(tokens=tokens)
+    if cfg.family == "encdec":
+        batch["frontend"] = torch.as_tensor(rng.normal(size=(2, 16, cfg.d_model)), dtype=torch.float32)
+    out = {}
+    for dev in ("cpu", card):
+        p = tree_map(lambda t: t.to(dev), params)
+        logits = [LM.forward(cfg, p, {k: v.to(dev) for k, v in batch.items()})]
+        cache = LM.init_cache(cfg, 2, 8, dtype=torch.float32, device=dev)
+        for pos in range(2):
+            lg, cache = LM.decode_step(cfg, p, cache, tokens[:, pos].to(dev), pos)
+            logits.append(lg)
+        out[str(dev)] = [t.cpu() for t in logits]
+    for a, b in zip(out["cpu"], out[str(card)]):
+        torch.testing.assert_close(b, a, rtol=0, atol=1e-4)
+
+
+def test_serve_engine_on_card(card):
+    """The engine on the card: identical tokens with and without the
+    prefix cache, and the CPU engine's tokens (float32)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.models import model as LM
+    from repro_torch.models.kvcache import PrefixCache
+    from repro_torch.models.layers import split_params
+    from repro_torch.serve import ServeEngine
+
+    cfg = dataclasses.replace(
+        reduced(get_config("qwen2.5-3b"), n_layers=2, d_model=128, d_ff=256, vocab=64),
+        dtype="float32")
+    params = split_params(LM.init_params(cfg, 2, device="cpu"))[0]
+    rng = np.random.default_rng(6)
+    shared = rng.integers(0, cfg.vocab, 24).astype(np.int32)
+    prompts = [np.concatenate([shared, rng.integers(0, cfg.vocab, 8).astype(np.int32)])
+               for _ in range(3)]
+    outs = []
+    for dev, cached in (("cpu", False), (card, False), (card, True)):
+        pc = PrefixCache(cfg, n_pages=64, page_size=8, device=dev) if cached else None
+        eng = ServeEngine(cfg, params, max_seq=96, prefix_cache=pc, device=dev)
+        outs.append([eng.generate(p, max_new=8) for p in prompts])
+    assert eng.stats.cached_tokens > 0 and pc.pool_k.device.type == "cuda"
+    for other in outs[1:]:
+        for a, b in zip(outs[0], other):
+            np.testing.assert_array_equal(a, b)
+
+
+def test_page_table_on_card_matches_cpu(card):
+    from repro_torch.models.kvcache import RemixPageTable
+
+    tables = [RemixPageTable(d=8, device=dev) for dev in ("cpu", card)]
+    rng = np.random.default_rng(5)
+    keys = []
+    for _ in range(12):  # past max_runs: tiered merges
+        for _ in range(40):
+            h = int(rng.integers(0, 2**63))
+            slot, ln = int(rng.integers(0, 1000)), int(rng.integers(1, 100))
+            keys.append(h)
+            for t in tables:
+                t.add(np.uint64(h), slot, ln)
+        for t in tables:
+            t.flush_generation()
+    probes = np.array(keys[::3] + [1, 2, 3], np.uint64)
+    for a, b in zip(*(t.lookup_batch(probes) for t in tables)):
+        np.testing.assert_array_equal(a, b)

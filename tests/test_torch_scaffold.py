@@ -44,7 +44,10 @@ def test_port_imports_neither_jax_nor_repro():
             "repro_torch.bench.common", "repro_torch.bench.fig11_queries",
             "repro_torch.bench.fig13_groupsize", "repro_torch.bench.table1_storage",
             "repro_torch.bench.fig14_16_stores", "repro_torch.bench.fig17_ycsb",
-            "repro_torch.bench.run"} <= set(MODULES)
+            "repro_torch.bench.run", "repro_torch.configs.base",
+            "repro_torch.configs.qwen2_5_3b", "repro_torch.models.sharding",
+            "repro_torch.models.layers", "repro_torch.models.model",
+            "repro_torch.models.kvcache", "repro_torch.models.convert"} <= set(MODULES)
 
 
 FORBIDDEN = re.compile(
@@ -85,8 +88,13 @@ def _entry_points():
     from repro_torch.db.store import RemixDB
     from repro_torch.device import resolve
     from repro_torch.kernels.device_view import DeviceViewManager
-    from repro_torch.serve import KVServeEngine
+    from repro_torch.serve import KVServeEngine, ServeEngine
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.models.kvcache import PrefixCache, RemixPageTable
+    from repro_torch.models.model import init_cache, init_params
+    from repro_torch.models.convert import params_from_numpy
 
+    lm = reduced(get_config("qwen2.5-3b"), n_layers=1, d_model=64, d_ff=64, vocab=32)
     k = np.zeros((1, 2), np.uint32)
     one = np.zeros(1, np.int32)
     return {
@@ -108,6 +116,12 @@ def _entry_points():
             RemixServiceConfig(entries_per_run=8, runs_per_partition=1), 2),
         "make_tables": lambda tmp: make_tables(1, 8),
         "qkeys": lambda tmp: qkeys(np.random.default_rng(0), 100, 4),
+        "init_params": lambda tmp: init_params(lm, 0),
+        "init_cache": lambda tmp: init_cache(lm, 1, 8),
+        "params_from_numpy": lambda tmp: params_from_numpy({"w": np.zeros(2, np.float32)}),
+        "RemixPageTable": lambda tmp: RemixPageTable(),
+        "PrefixCache": lambda tmp: PrefixCache(lm, 4),
+        "ServeEngine": lambda tmp: ServeEngine(lm, {}),
     }
 
 
