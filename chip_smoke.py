@@ -94,9 +94,9 @@ Phases, each fatal on failure:
    bloom-filtered get, each against a numpy oracle, the bloom's false
    negatives counted: 0), fig13 (D in {16, 32, 64} at R = 8), table1,
    fig14-16 (RemixDB, whose reads go through both kernels, against the
-   leveled and tiered stores at 4x the reference's keys, memtable and
+   leveled and tiered stores at 2x the reference's keys, memtable and
    table cap; every store held to the oracle after each load) and fig17
-   (YCSB A-F at 4x the keys, 3,000 ops each; the stores held to the
+   (YCSB A-F at 2x the keys, 3,000 ops each; the stores held to the
    oracle after the load and after F, the baselines' scans after F to
    their own ``scan`` per start). After each load, outside the counted
    runs, both kernels against their plain versions bit for bit on the
@@ -127,6 +127,25 @@ Phases, each fatal on failure:
    table's ``lookup_batch`` on the card against a dict over 5 generations
    with a tiered merge. No kernel of ``csrc/`` is on this path (the
    counts are printed).
+10. LM training — (a) phase 9 freed, the bytes still allocated logged;
+   (b) ``loss_fn`` and every grad leaf on the card against the CPU:
+   qwen2.5-3b's widths at 2 layers in float32 and in bfloat16, then one
+   arch of each family at ``reduced`` in float32; (c) the port's launcher,
+   ``repro_torch.launch.train.main``, at qwen2.5-3b's published widths
+   (``--no-reduced``: float32 params, grads and AdamW moments, 49.4 GB;
+   the reference launcher's batch 8 x 128 tokens) for 4 steps and its
+   final save (37.0 GB) into a temporary directory under ``TMPDIR``
+   (device, disk and host RAM checked first); that checkpoint restored
+   onto the card beside the trained state and held to it bit for bit,
+   then a fifth step resumed from it as ``--resume`` runs one, and one
+   more profiled: per-step ms, tokens/s, loss and grad norm (finite,
+   norm > 0, every leaf moved), peak device bytes, the save's and the
+   restore's bytes and seconds. The launcher's own ``--resume`` (a second
+   save) runs at ``--reduced``: a second full-width save would write
+   74 GB in one run. (d) The reference test's learning bar on the card
+   (reduced qwen2.5-3b, 40 steps, the loss down by more than 0.3) and
+   exact resume, bit for bit under deterministic algorithms. No kernel of
+   ``csrc/`` is on this path (the counts are printed).
 
 The last lines are one JSON object listing the kernels, the card's name
 and power limit from nvidia-smi, and ``{"ok": true, "device": ...}``.
@@ -201,12 +220,15 @@ FLEET_TAIL = 4096  # stage 5's put_batch into the replicated shard
 # phase 8: the paper's figures (src/repro_torch/bench/), with the
 # reference benchmarks' shapes and mix. fig11-13 tables of 2^18 keys, 16x
 # benchmarks/fig11_queries.py's 16,384 (the host builds of the tables took
-# phase 8 to 391 s at 2^20 and to 344 s at 2^19 on a slower host); fig14-17 keys, memtable and table cap x 4
-# (fig14-16: 480,000 keys, memtable and table_cap 32,768 against the
-# store defaults 2^18 and 65,536; fig17: 240,000 keys, OPS 3,000)
+# phase 8 to 391 s at 2^20 and to 344 s at 2^19 on a slower host); fig14-17 keys, memtable and table cap x 2
+# (fig14-16: 240,000 keys, memtable and table_cap 16,384 against the
+# store defaults 2^18 and 65,536; fig17: 120,000 keys, OPS 3,000). At x 4
+# the whole script, phase 10 included, ran 744 s on an H100 and 986 s on
+# a slower host (phase 8 320 s of it), against the 1,200 s it may take;
+# at x 2 it ran 665 s
 PAPER_N_PER_TABLE = 1 << 18
 PAPER_TIMED = ("fig14 120B", "fig17 load")  # one store per G of phase 8's partitions
-PAPER_SCALE = 4
+PAPER_SCALE = 2
 PAPER_SEED = 1  # build_demo_state's draws for the sharded get
 # phase 9: LLM serving at qwen2.5-3b's published widths
 # (src/repro/configs/qwen2_5_3b.py) with random weights from a seed;
@@ -228,8 +250,30 @@ LLM_DECODE_ATOL = 2e-4
 # each family on the card against the CPU, float32 (2 layers): the
 # card's float32 GEMMs sum in another order than the CPU's; |logits| ~ 1.5
 LLM_FAMILY_ATOL = 1e-4
+# phase 10: LM training at qwen2.5-3b's published widths through the port's
+# launcher, at the reference launcher's own batch and sequence defaults
+# (src/repro/launch/train.py: --batch 8 --seq 128); float32 params, grads
+# and AdamW moments (49.4 GB), random weights from the launcher's seed
+TRAIN_ARCH = "qwen2.5-3b"
+TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ = 4, 8, 128
+# the full-width run saves once (37.0 GB) under TMPDIR, tempfile's default
+TRAIN_DEVICE_MARGIN = 8 << 30  # activations, logits, the optimizer's slices
+TRAIN_RESTORE_MARGIN = 2 << 30  # the restored state beside the trained one
+TRAIN_DISK_MARGIN = 2 << 30
+TRAIN_HOST_MARGIN = 4 << 30
+TRAIN_LEARN_STEPS = 40  # the reference's test_loss_decreases
+# card against CPU (loss_fn and every grad leaf): qwen2.5-3b's widths at 2
+# layers and one arch of each family at reduced, batch 1 x 32. float32:
+# both sum their GEMMs in their own order (no TF32), ~1e-6 relative a
+# product. bfloat16: both round after each op, but a one-ulp difference
+# (2^-8) in a GEMM's output travels through the layers and back
+TRAIN_CHECK_LAYERS = 2
+TRAIN_CHECK_BATCH = (1, 32)
+TRAIN_F32_LOSS_ATOL, TRAIN_F32_GRAD_RTOL = 1e-4, 1e-4
+TRAIN_BF16_LOSS_ATOL, TRAIN_BF16_GRAD_RTOL = 2e-2, 0.1
 DEV = "cuda"
 HBM_BPS = 3.35e12  # H100 SXM device memory, bytes/s
+BF16_FLOPS = 989e12  # H100 SXM dense bfloat16 tensor-core peak, FLOP/s
 INT32_LANES_PER_SM = 64  # Hopper SM: 4 partitions x 16 INT32 lanes (H100 whitepaper)
 
 REPLACES = {
@@ -2859,6 +2903,391 @@ def phase_llm(rng, card):
     log(f"[llm] phase 9 ran {time.perf_counter() - t_phase:.1f} s")
 
 
+# --------------------------------------------------------------- phase 10
+def _tree_nbytes(tree) -> int:
+    from repro_torch.train.optimizer import flat_leaves
+
+    return sum(t.numel() * t.element_size() for t in flat_leaves(tree))
+
+
+def _train_grads(cfg, params, batch, dev):
+    """(loss, grads in leaf order) of ``loss_fn`` on ``dev``, the params
+    and the batch moved there."""
+    import torch
+
+    from repro_torch.models import model as LM
+    from repro_torch.models.layers import tree_map
+    from repro_torch.train.optimizer import flat_leaves
+
+    p = tree_map(lambda t: t.to(dev).requires_grad_(True), params)
+    loss = LM.loss_fn(cfg, p, {k: v.to(dev) for k, v in batch.items()})
+    grads = torch.autograd.grad(loss, flat_leaves(p))
+    return loss.item(), [g.float().cpu() for g in grads]
+
+
+def _train_card_against_cpu(cfg, label, card, loss_atol, grad_rtol, seed=0):
+    """``loss_fn`` and every grad leaf on the card against the CPU, the same
+    params (drawn on the CPU) and batch; fails past the tolerances."""
+    import torch
+
+    from repro_torch.models import model as LM
+    from repro_torch.models.layers import split_params
+
+    params = split_params(LM.init_params(cfg, seed, device="cpu"))[0]
+    r = np.random.default_rng(seed)
+    b, s = TRAIN_CHECK_BATCH
+    batch = {k: torch.as_tensor(r.integers(0, cfg.vocab, (b, s)), dtype=torch.int32)
+             for k in ("tokens", "labels")}
+    if cfg.frontend == "vlm":
+        batch["frontend"] = torch.as_tensor(r.normal(size=(b, cfg.frontend_len, cfg.d_model)),
+                                            dtype=torch.float32)
+    if cfg.family == "encdec":
+        batch["frontend"] = torch.as_tensor(r.normal(size=(b, s, cfg.d_model)),
+                                            dtype=torch.float32)
+    lc, gc = _train_grads(cfg, params, batch, "cpu")
+    lg, gg = _train_grads(cfg, params, batch, DEV)
+    rel = max(float((a - g).norm() / a.norm().clamp(min=1e-30)) for a, g in zip(gc, gg))
+    finite = all(bool(torch.isfinite(g).all()) for g in gg)
+    log(f"[train] {card}: {label}: loss card {lg:.6f} CPU {lc:.6f} (|diff| {abs(lg - lc):.3e}, "
+        f"tolerance {loss_atol}); {len(gg)} grad leaves, largest relative error "
+        f"{rel:.3e} (tolerance {grad_rtol}), finite {finite}")
+    check(finite and abs(lg - lc) <= loss_atol and rel <= grad_rtol,
+          f"{label}: card against CPU: loss {lg} / {lc}, grad rel err {rel}")
+
+
+class _StepProbe:
+    """Wraps the launcher's ``make_train_step``: each step synchronised and
+    timed on the host clock, its loss and grad norm read after it, and a
+    few param slices kept from before the first step."""
+
+    def __init__(self):
+        self.ms, self.loss, self.gnorm, self.before = [], [], [], None
+
+    def __call__(self, make):
+        import torch
+
+        from repro_torch.train.optimizer import flat_leaves
+
+        def wrapped(*a, **kw):
+            step = make(*a, **kw)
+
+            def timed(params, opt, batch):
+                if self.before is None:
+                    self.before = [t.detach().flatten()[:4096].clone()
+                                   for t in flat_leaves(params)]
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = step(params, opt, batch)
+                torch.cuda.synchronize()
+                self.ms.append((time.perf_counter() - t0) * 1e3)
+                self.loss.append(out[2]["loss"].item())
+                self.gnorm.append(out[2]["grad_norm"].item())
+                return out
+
+            return timed
+
+        return wrapped
+
+
+class _CkptProbe:
+    """Times ``checkpoint.save`` / ``restore`` and sizes what they move."""
+
+    def __init__(self, C):
+        self.C, self.saves, self.restores = C, [], []
+        self._save, self._restore = C.save, C.restore
+
+    def __enter__(self):
+        import torch
+
+        def save(ckpt_dir, step, params, opt_state, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            self._save(ckpt_dir, step, params, opt_state, **kw)
+            dt = time.perf_counter() - t0
+            d = Path(ckpt_dir) / f"step_{step}"
+            self.saves.append((step, sum(f.stat().st_size for f in d.iterdir()), dt))
+
+        def restore(*a, **kw):
+            t0 = time.perf_counter()
+            out = self._restore(*a, **kw)
+            torch.cuda.synchronize()
+            self.restores.append((_tree_nbytes(dict(p=out[0], o=out[1])),
+                                  time.perf_counter() - t0))
+            return out
+
+        self.C.save, self.C.restore = save, restore
+        return self
+
+    def __exit__(self, *exc):
+        self.C.save, self.C.restore = self._save, self._restore
+
+
+def _train_full_width(card, root, launches):
+    """``launch.train.main`` at qwen2.5-3b's published widths: TRAIN_STEPS
+    steps and the launcher's final save; that checkpoint restored onto the
+    card beside the trained state and held to it bit for bit; one step
+    resumed from it as ``--resume --steps TRAIN_STEPS + 1`` runs it (the
+    launcher's restore, data step and optimizer config), then one more
+    profiled. Per-step ms, tokens/s, loss, grad norm, peak bytes, the
+    checkpoint's bytes and seconds."""
+    import gc
+    import shutil
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataPipeline
+    from repro_torch.launch import train as TL
+    from repro_torch.train import checkpoint as C
+    from repro_torch.train.optimizer import OptConfig, flat_leaves
+    from repro_torch.train.train_step import make_train_step
+
+    cfg = get_config(TRAIN_ARCH)
+    n = cfg.n_params()
+    state = 4 * n * 4  # float32 params, grads, mu, nu
+    ckpt = 3 * n * 4  # params, mu, nu
+    gc.collect()
+    torch.cuda.empty_cache()
+    free_dev, total_dev = torch.cuda.mem_get_info()
+    disk = shutil.disk_usage(root).free
+    with open("/proc/meminfo") as f:
+        ram = next(int(line.split()[1]) * 1024 for line in f if line.startswith("MemAvailable"))
+    with open("/proc/self/io") as f:
+        written = next(int(line.split()[1]) for line in f if line.startswith("write_bytes"))
+    log(f"[train] {card}: {TRAIN_ARCH} at its published widths, {n:,} params: params + grads "
+        f"+ AdamW moments {state:,} B; device free {free_dev:,} of {total_dev:,} B "
+        f"(allocated {torch.cuda.memory_allocated():,}); a checkpoint {ckpt:,} B, free "
+        f"{disk:,} B under {root}; {written:,} B written to storage by this script so far; "
+        f"host RAM available {ram:,} B")
+    check(free_dev >= state + TRAIN_DEVICE_MARGIN,
+          f"the card cannot hold training: {free_dev:,} B free < {state:,} B of state + "
+          f"{TRAIN_DEVICE_MARGIN:,} B margin")
+    check(disk >= ckpt + TRAIN_DISK_MARGIN,
+          f"{root} cannot hold a full-width checkpoint: {disk:,} B free < "
+          f"{ckpt:,} + {TRAIN_DISK_MARGIN:,} B")
+    largest = 4 * max(cfg.vocab * cfg.d_model, cfg.n_layers * cfg.d_model * cfg.d_ff)
+    check(ram >= 2 * largest + TRAIN_HOST_MARGIN,
+          f"host RAM {ram:,} B available < 2 x {largest:,} B (the largest leaf, on the host "
+          f"once as it is written and once as it is read) + {TRAIN_HOST_MARGIN:,} B")
+
+    d = str(Path(root) / "ckpt")
+    argv = ["--arch", TRAIN_ARCH, "--no-reduced", "--batch", str(TRAIN_BATCH),
+            "--seq", str(TRAIN_SEQ), "--ckpt", d, "--ckpt-every", "1000", "--device", DEV]
+    probe = _StepProbe()
+    real_make = TL.make_train_step
+    TL.make_train_step = probe(real_make)
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        with _CkptProbe(C) as cp:
+            t0 = time.perf_counter()
+            pv, opt = run_counted("train", f"{TRAIN_ARCH} launch.train.main, {TRAIN_STEPS} steps",
+                                  lambda: TL.main(argv + ["--steps", str(TRAIN_STEPS)]),
+                                  launches, require=False)
+            t_main = time.perf_counter() - t0
+    finally:
+        TL.make_train_step = real_make
+    peak = torch.cuda.max_memory_allocated()
+    after = [t.detach().flatten()[:4096] for t in flat_leaves(pv)]
+    changed = sum(not torch.equal(a, b) for a, b in zip(probe.before, after))
+    ms, loss, gnorm = list(probe.ms), list(probe.loss), list(probe.gnorm)
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    steady = ms[1:]
+    log(f"[train] {card}: {TRAIN_STEPS} steps of {TRAIN_BATCH} x {TRAIN_SEQ} tokens in "
+        f"{t_main:.1f} s (init, steps, final save): step ms {', '.join(f'{x:.1f}' for x in ms)} "
+        f"(step 0 apart: {_spread(steady)} ms, {tokens / (np.median(steady) / 1e3):,.0f} "
+        f"tokens/s); loss {', '.join(f'{x:.4f}' for x in loss)}; grad norm "
+        f"{', '.join(f'{x:.4f}' for x in gnorm)}; {changed} of {len(after)} leaves changed "
+        f"(first 4,096 elements); peak device bytes {peak:,}")
+    check(all(np.isfinite(loss)) and all(np.isfinite(gnorm)) and min(gnorm) > 0,
+          f"full width: loss {loss}, grad norm {gnorm}")
+    check(changed == len(after), f"full width: only {changed} of {len(after)} leaves moved")
+    check(len(cp.saves) == 1 and cp.saves[0][0] == TRAIN_STEPS and cp.saves[0][1] >= ckpt,
+          f"full width: saves {cp.saves}")
+    del after
+    gc.collect()
+    torch.cuda.empty_cache()
+    free_dev = torch.cuda.mem_get_info()[0]
+    check(free_dev >= ckpt + TRAIN_RESTORE_MARGIN,
+          f"the card cannot hold the restored state beside the trained one: {free_dev:,} B "
+          f"free < {ckpt:,} + {TRAIN_RESTORE_MARGIN:,} B")
+    with _CkptProbe(C) as cp2:
+        rp, ro, extra = C.restore(d, device=DEV)
+    a, b = flat_leaves(dict(p=pv, o=opt)), flat_leaves(dict(p=rp, o=ro))
+    same = sum(torch.equal(x, y) for x, y in zip(a, b))
+    log(f"[train] {card}: checkpoint of step {TRAIN_STEPS} restored onto the card: {same} of "
+        f"{len(a)} leaves bit-identical to the trained state; data step {extra['data']['step']}")
+    check(same == len(a) and len(a) == len(b) and extra["data"]["step"] == TRAIN_STEPS,
+          f"full width: the restore differs from the trained state ({same}/{len(a)}, "
+          f"data step {extra['data']['step']})")
+    del pv, opt, a, b
+    shutil.rmtree(d)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    data = DataPipeline(vocab=cfg.vocab, batch=TRAIN_BATCH, seq=TRAIN_SEQ, seed=0, device=DEV)
+    probe.before = None
+    probe.ms.clear(), probe.loss.clear(), probe.gnorm.clear()
+    resumed = probe(make_train_step)(cfg, OptConfig(total_steps=TRAIN_STEPS + 1))
+    rp, ro, _ = resumed(rp, ro, data.get_batch(extra["data"]["step"]))
+    log(f"[train] {card}: step {TRAIN_STEPS} resumed from the checkpoint: {probe.ms[0]:.1f} ms, "
+        f"loss {probe.loss[0]:.4f}, grad norm {probe.gnorm[0]:.4f}; opt step {int(ro['step'])}")
+    check(int(ro["step"]) == TRAIN_STEPS + 1 and np.isfinite(probe.loss[0])
+          and probe.gnorm[0] > 0, f"resumed step: opt step {int(ro['step'])}, {probe.loss}")
+
+    batch = data.get_batch(TRAIN_STEPS + 1)
+    step = make_train_step(cfg, OptConfig(total_steps=TRAIN_STEPS + 1))
+    prof = profile_batches(f"{card}: {TRAIN_ARCH} train step (profiled on the resumed "
+                           f"state, outside the run)", lambda: step(rp, ro, batch), 1)
+    # the step's least work: 6 FLOP a param a token (forward 2, backward
+    # 4; the recompute is the port's choice), float32 params and both
+    # moments read once and written once
+    flops, nbytes = 6 * n * tokens, 24 * n
+    if prof is not None:
+        log(f"[train] {card}: one train step: {prof['wall_us'] / 1e3:.1f} ms wall, "
+            f"{prof['busy_us'] / 1e3:.1f} ms device busy, idle share "
+            f"{1 - prof['busy_us'] / prof['wall_us']:.3f}, {prof['launches']:.0f} device "
+            f"launches; bound {max(flops / BF16_FLOPS, nbytes / HBM_BPS) * 1e3:.2f} ms "
+            f"({flops:.3e} FLOP at {BF16_FLOPS / 1e12:.0f} TFLOP/s bfloat16: "
+            f"{flops / BF16_FLOPS * 1e3:.2f} ms; {nbytes:,} B at {HBM_BPS / 1e12} TB/s: "
+            f"{nbytes / HBM_BPS * 1e3:.2f} ms)")
+    for step_, nb, dt in cp.saves:
+        log(f"[train] {card}: save of step {step_}: {nb:,} B in {dt:.2f} s "
+            f"({nb / dt / 1e9:.2f} GB/s)")
+    for nb, dt in cp2.restores:
+        log(f"[train] {card}: restore: {nb:,} B onto the card in {dt:.2f} s "
+            f"({nb / dt / 1e9:.2f} GB/s)")
+    del rp, ro, batch, step, resumed
+
+
+def _train_launcher_resume(card, root, launches):
+    """The launcher's own ``--resume`` on the card at ``--reduced`` (its
+    default): TRAIN_STEPS steps and a save, then ``--resume --steps
+    TRAIN_STEPS + 1``, which restores that checkpoint, runs one step and
+    saves again."""
+    from repro_torch.launch import train as TL
+    from repro_torch.train import checkpoint as C
+
+    d = str(Path(root) / "launcher")
+    argv = ["--arch", TRAIN_ARCH, "--batch", str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ),
+            "--ckpt", d, "--device", DEV]
+    probe = _StepProbe()
+    real_make = TL.make_train_step
+    TL.make_train_step = probe(real_make)
+    try:
+        run_counted("train", f"reduced {TRAIN_ARCH} launch.train.main, {TRAIN_STEPS} steps",
+                    lambda: TL.main(argv + ["--steps", str(TRAIN_STEPS)]), launches,
+                    require=False)
+        probe.ms.clear(), probe.loss.clear(), probe.gnorm.clear()
+        _, opt = run_counted("train", f"reduced {TRAIN_ARCH} launch.train.main --resume",
+                             lambda: TL.main(argv + ["--steps", str(TRAIN_STEPS + 1),
+                                                     "--resume"]),
+                             launches, require=False)
+    finally:
+        TL.make_train_step = real_make
+    log(f"[train] {card}: reduced {TRAIN_ARCH}, launch.train.main --resume --steps "
+        f"{TRAIN_STEPS + 1}: {len(probe.ms)} step ran, loss {probe.loss}, opt step "
+        f"{int(opt['step'])}, latest checkpoint step {C.latest_step(d)}")
+    check(len(probe.ms) == 1 and int(opt["step"]) == TRAIN_STEPS + 1
+          and C.latest_step(d) == TRAIN_STEPS + 1 and np.isfinite(probe.loss[0]),
+          f"launcher resume: {probe.ms} steps, opt step {int(opt['step'])}")
+
+
+def _train_learns(card, root):
+    """The reference test's bar on the card (its ``tiny_setup``: reduced
+    qwen2.5-3b at 2 layers, d_model 128, vocab 128, lr 1e-2, batch 8 x 32):
+    40 steps lower the mean loss of the last five by more than 0.3 below
+    the first five; then exact resume (5 steps, save, restore, 5 more
+    against 10 straight) bit for bit under deterministic algorithms."""
+    import torch
+
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.data.pipeline import DataPipeline
+    from repro_torch.models import model as LM
+    from repro_torch.models.layers import split_params
+    from repro_torch.train import checkpoint as C
+    from repro_torch.train.optimizer import OptConfig, flat_leaves, init_opt_state
+    from repro_torch.train.train_step import make_train_step
+
+    cfg = reduced(get_config(TRAIN_ARCH), n_layers=2, d_model=128, d_ff=256, vocab=128)
+    opt_cfg = OptConfig(lr=1e-2, warmup=5, total_steps=60)
+    data = DataPipeline(vocab=cfg.vocab, batch=8, seq=32, seed=1, device=DEV)
+    step = make_train_step(cfg, opt_cfg)
+
+    def fresh():
+        pv = split_params(LM.init_params(cfg, 0, device=DEV))[0]
+        return pv, init_opt_state(opt_cfg, pv)
+
+    pv, opt = fresh()
+    losses = []
+    for i in range(TRAIN_LEARN_STEPS):
+        pv, opt, m = step(pv, opt, data.get_batch(i))
+        losses.append(m["loss"].item())
+    drop = np.mean(losses[:5]) - np.mean(losses[-5:])
+    log(f"[train] {card}: reduced {TRAIN_ARCH}, {TRAIN_LEARN_STEPS} steps on the card: loss "
+        f"{losses[0]:.4f} -> {losses[-1]:.4f}, mean of the first five minus the last five "
+        f"{drop:.4f} (bar 0.3)")
+    check(np.isfinite(losses).all() and drop > 0.3, f"the loss did not drop: {losses[::8]}")
+
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    torch.use_deterministic_algorithms(True)
+    try:
+        p1, o1 = fresh()
+        for i in range(10):
+            p1, o1, _ = step(p1, o1, data.get_batch(i))
+        p2, o2 = fresh()
+        for i in range(5):
+            p2, o2, _ = step(p2, o2, data.get_batch(i))
+        C.save(str(Path(root) / "learn"), 5, p2, o2, extra=dict(data=data.state(5)))
+        del p2, o2
+        rp, ro, extra = C.restore(str(Path(root) / "learn"), device=DEV)
+        for i in range(extra["data"]["step"], 10):
+            rp, ro, _ = step(rp, ro, data.get_batch(i))
+        a, b = flat_leaves(dict(p=p1, o=o1)), flat_leaves(dict(p=rp, o=ro))
+        same = sum(torch.equal(x, y) for x, y in zip(a, b))
+        err = max(float((x.detach().float() - y.detach().float()).abs().max())
+                  for x, y in zip(a, b))
+    finally:
+        torch.use_deterministic_algorithms(False)
+    log(f"[train] {card}: exact resume on the card under deterministic algorithms: {same} of "
+        f"{len(a)} leaves bit-identical (max abs diff {err:.3e})")
+    check(same == len(a), f"resume on the card is not bit-exact: {same}/{len(a)}, {err}")
+
+
+def phase_train(rng, card):
+    """LM training (module docstring, phase 10). Returns both kernels'
+    launch counts over the launcher's runs."""
+    import dataclasses
+    import gc
+
+    import torch
+
+    from repro_torch.configs import get_config, reduced
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[train] {card}: phase 10 starts with {torch.cuda.memory_allocated():,} B allocated")
+    full = get_config(TRAIN_ARCH)
+    two = dataclasses.replace(full, n_layers=TRAIN_CHECK_LAYERS)
+    _train_card_against_cpu(dataclasses.replace(two, dtype="float32"),
+                            f"{TRAIN_ARCH} at {TRAIN_CHECK_LAYERS} layers, float32", card,
+                            TRAIN_F32_LOSS_ATOL, TRAIN_F32_GRAD_RTOL)
+    _train_card_against_cpu(two, f"{TRAIN_ARCH} at {TRAIN_CHECK_LAYERS} layers, bfloat16", card,
+                            TRAIN_BF16_LOSS_ATOL, TRAIN_BF16_GRAD_RTOL)
+    for arch in LLM_FAMILIES:
+        cfg = dataclasses.replace(reduced(get_config(arch)), dtype="float32")
+        _train_card_against_cpu(cfg, f"{arch} ({cfg.family}, reduced, float32)", card,
+                                TRAIN_F32_LOSS_ATOL, TRAIN_F32_GRAD_RTOL)
+    launches = {"anchor_search": 0, "selector_decode": 0}
+    with tempfile.TemporaryDirectory() as root:
+        _train_full_width(card, root, launches)
+        _train_launcher_resume(card, root, launches)
+        _train_learns(card, root)
+    log(f"[train] {card}: kernel launches of csrc/ on this path {launches}")
+    log(f"[train] phase 10 ran {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def smi() -> str:
     p = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -2887,28 +3316,41 @@ def main() -> int:
     card = smi()
     log(f"[device] {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}; "
         f"torch {torch.__version__} cuda {torch.version.cuda}; {card}")
+    def mark(name):
+        log(f"[time] {name} ended at {time.perf_counter() - t_script:.1f} s")
+
     try:
         phase_build()
         err = phase_kernels(rng)
+        mark("phases 1-2")
         parts, domains, oracles = build_partitions(rng)
         mgr, views, starts, launches = phase_main(rng, parts, domains, oracles)
         timings = phase_timings(rng, views, domains, starts, err, card)
         phase_end_to_end(rng, mgr, views, domains, starts, card)
+        mark("phases 3-4")
         with tempfile.TemporaryDirectory() as root:
             idx_launches, idx_mgr, driven = phase_index_tier(rng, root, card)
         launches = {k: n + idx_launches[k] for k, n in launches.items()}
         idx_shapes, idx_err = view_kernels(idx_mgr, driven, card)
         del idx_mgr, driven
+        mark("phase 5")
         peak = torch.cuda.max_memory_allocated()  # phase 6 resets the peak
         with tempfile.TemporaryDirectory() as root:
             store_launches, store_shapes, store_err = phase_store(rng, root, card)
+        mark("phase 6")
         with tempfile.TemporaryDirectory() as root:
             fleet_launches, fleet_shapes, fleet_err = phase_cluster(rng, root, card)
+        mark("phase 7")
         paper_launches, paper_shapes, paper_err = phase_paper(card)
-        peak = max(peak, torch.cuda.max_memory_allocated())  # phase 9 resets the peak
+        mark("phase 8")
+        peak = max(peak, torch.cuda.max_memory_allocated())  # phases 9, 10 reset the peak
         phase_llm(rng, card)
+        mark("phase 9")
+        del mgr, views, starts, parts, domains, oracles
+        train_launches = phase_train(rng, card)
+        mark("phase 10")
         launches = {k: n + store_launches[k] + fleet_launches[k] + paper_launches[k]
-                    for k, n in launches.items()}
+                    + train_launches[k] for k, n in launches.items()}
         for t in timings:
             t["shapes"] += (idx_shapes[t["name"]] + store_shapes[t["name"]]
                             + fleet_shapes[t["name"]] + paper_shapes[t["name"]])

@@ -1,10 +1,12 @@
-"""Carry a reference param tree into the port.
+"""Carry param trees between the reference and the port.
 
 ``params_from_numpy`` takes the reference's value tree
 (``split_params(init_params(...))[0]``) with every leaf as a numpy array
 and returns the port's tree, leaf for leaf under the same keys. A
 ``bfloat16`` leaf (``ml_dtypes``) goes through float32, which is exact,
-to ``torch.bfloat16``.
+to ``torch.bfloat16``. ``numpy_from_params`` is the reverse: the port's
+tree (params, grads or optimizer state) as host numpy arrays, a
+``bfloat16`` leaf as float32 (exact).
 """
 from __future__ import annotations
 
@@ -62,3 +64,14 @@ def params_from_numpy(tree, device="cuda", dtype=None, like=None):
         return _leaf(t, device, dtype)
 
     return walk(tree)
+
+
+def numpy_from_params(tree):
+    """The port's tensor tree as a numpy tree under the same keys (host
+    copies; ``bfloat16`` leaves as float32)."""
+    if isinstance(tree, dict):
+        return {k: numpy_from_params(v) for k, v in tree.items()}
+    t = tree.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        t = t.float()
+    return t.numpy().copy()

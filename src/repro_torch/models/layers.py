@@ -172,9 +172,12 @@ def flash_attention(
         for kj in range(nk)
         if not prune or kj * block <= q_offset + (qi + 1) * blk_q - 1
     ]
-    m = torch.full((b, nq, blk_q, kvh, groups), NEG, dtype=torch.float32, device=q.device)
-    l = torch.zeros((b, nq, blk_q, kvh, groups), dtype=torch.float32, device=q.device)
-    acc = torch.zeros((b, nq, blk_q, kvh, groups, hd_v), dtype=torch.float32, device=q.device)
+    # the online-softmax state of each q block, replaced (not written in
+    # place) at every pair so that autograd can differentiate the loop
+    state = (b, blk_q, kvh, groups)
+    m = [torch.full(state, NEG, dtype=torch.float32, device=q.device) for _ in range(nq)]
+    l = [torch.zeros(state, dtype=torch.float32, device=q.device) for _ in range(nq)]
+    acc = [torch.zeros(state + (hd_v,), dtype=torch.float32, device=q.device) for _ in range(nq)]
     ar_q, ar_k = _arange(blk_q, q), _arange(block, q)
     for qi, kj in pairs:
         qb, kb, vb = qg[:, qi], kp[:, kj], vp[:, kj]
@@ -190,14 +193,14 @@ def flash_attention(
         if window is not None:
             mask = mask & (kpos[None, :] > qpos[:, None] - window)
         s = torch.where(mask[None, :, None, None, :], s, NEG)
-        m_old, l_old, a_old = m[:, qi], l[:, qi], acc[:, qi]
+        m_old, l_old, a_old = m[qi], l[qi], acc[qi]
         m_new = torch.maximum(m_old, torch.amax(s, dim=-1))
         p = torch.exp(s - m_new[..., None])
         corr = torch.exp(m_old - m_new)
-        l[:, qi] = l_old * corr + torch.sum(p, dim=-1)
-        acc[:, qi] = a_old * corr[..., None] + torch.einsum("bqkgj,bjkd->bqkgd", p, vb)
-        m[:, qi] = m_new
-    out = acc / torch.clamp(l[..., None], min=1e-30)
+        l[qi] = l_old * corr + torch.sum(p, dim=-1)
+        acc[qi] = a_old * corr[..., None] + torch.einsum("bqkgj,bjkd->bqkgd", p, vb)
+        m[qi] = m_new
+    out = torch.stack(acc, 1) / torch.clamp(torch.stack(l, 1)[..., None], min=1e-30)
     out = out.reshape(b, nq * blk_q, h, hd_v)[:, :sq]
     return out.to(orig_dtype)
 

@@ -1,4 +1,5 @@
-"""Model assembly per architecture family: init / forward / prefill / decode.
+"""Model assembly per architecture family: init / loss / forward / prefill /
+decode.
 
 All families stack their repeated block over a leading 'layers' axis, as
 the reference does; where it scans the stack with ``lax.scan`` the port
@@ -7,6 +8,15 @@ logical_axes)`` trees at init; the entry points consume the raw value
 tree (see ``split_params``). :class:`LanguageModel` wraps a value tree in
 an ``nn.Module`` so ``.to()`` and ``state_dict()`` work; the functions
 stay the API.
+
+Training differentiates ``loss_fn`` with ``torch.autograd`` over the
+value tree's leaves (:mod:`repro_torch.train.train_step`), which then
+updates those same tensors in place. ``remat=True`` runs each block
+under ``torch.utils.checkpoint`` (non-reentrant) when autograd records:
+the block keeps only its input and recomputes everything else in the
+backward pass. The reference's ``jax.checkpoint`` policy
+``dots_with_no_batch_dims_saveable`` also keeps the weight products
+without a batch dimension; that changes what is stored, not a value.
 
 Decode caches are updated in place: ``decode_step`` writes the new
 position into the cache's tensors and returns a dict of the same tensors
@@ -18,6 +28,7 @@ import math
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve
@@ -118,13 +129,17 @@ def init_params(cfg: ModelConfig, gen, device="cuda"):
     return params
 
 
-def _layer(blocks, i: int):
-    """Layer ``i`` of a stacked tree (views, no copy)."""
-    return L.tree_map(lambda a: a[i], blocks)
-
-
 def _n_layers(blocks) -> int:
     return L.tree_leaves(blocks)[0].shape[0]
+
+
+def _layers(blocks) -> list:
+    """Every layer of a stacked tree (views), from one ``unbind`` a leaf:
+    autograd then stacks the layers' grads into the leaf's grad once,
+    where a view taken by indexing would add a zero-filled grad of the
+    whole stack for every layer."""
+    split = L.tree_map(lambda a: a.unbind(0), blocks)
+    return [L.tree_map(lambda t: t[i], split) for i in range(_n_layers(blocks))]
 
 
 # ------------------------------------------------------------------ blocks
@@ -179,16 +194,27 @@ def _logits(cfg, params, x):
     return shard(logits, "batch", "seq", "vocab")
 
 
-def _scan_blocks(cfg, blocks, x, positions, enc_out=None):
-    is_mamba = "mamba" in blocks  # ssm / hybrid backbone blocks
-    for i in range(_n_layers(blocks)):
-        bp = _layer(blocks, i)
+def _mamba_block(cfg, bp, x):
+    h = L.rmsnorm(x, bp["ln"], cfg.norm_eps)
+    y, _ = L.mamba_forward(cfg, bp["mamba"], h)
+    return x + y
+
+
+def _scan_blocks(cfg, blocks, x, positions, enc_out=None, remat=True):
+    # ssm / hybrid backbone blocks hold "mamba"
+    return _run_layers(cfg, _layers(blocks), "mamba" in blocks, x, positions, enc_out, remat)
+
+
+def _run_layers(cfg, layers, is_mamba, x, positions, enc_out=None, remat=True):
+    remat = remat and torch.is_grad_enabled()
+    for i, bp in enumerate(layers):
         if is_mamba:
-            h = L.rmsnorm(x, bp["ln"], cfg.norm_eps)
-            y, _ = L.mamba_forward(cfg, bp["mamba"], h)
-            x = x + y
+            body = lambda x, bp=bp: _mamba_block(cfg, bp, x)  # noqa: E731
         else:
-            x = _dense_block(cfg, bp, x, positions, i, enc_out=enc_out)
+            body = lambda x, bp=bp, i=i: _dense_block(  # noqa: E731
+                cfg, bp, x, positions, i, enc_out=enc_out
+            )
+        x = checkpoint(body, x, use_reentrant=False) if remat else body(x)
     return x
 
 
@@ -196,19 +222,20 @@ def _positions(n: int, like: torch.Tensor) -> torch.Tensor:
     return torch.arange(n, device=like.device)[None, :]
 
 
-def forward(cfg: ModelConfig, params, batch):
+def forward(cfg: ModelConfig, params, batch, remat=True):
     """Forward → logits. batch: dict(tokens, [frontend])."""
     if cfg.family == "encdec":
         enc_x = batch["frontend"].to(L.cdtype(cfg))  # (B,S,D) stub frames
         enc_x = _scan_blocks(
-            cfg, params["enc_blocks"], enc_x, _positions(enc_x.shape[1], enc_x)
+            cfg, params["enc_blocks"], enc_x, _positions(enc_x.shape[1], enc_x),
+            remat=remat,
         )
         enc_out = L.rmsnorm(enc_x, params["enc_norm"], cfg.norm_eps)
         tokens = batch["tokens"]
         x = _embed_tokens(cfg, params, tokens)
         x = _scan_blocks(
             cfg, params["dec_blocks"], x, _positions(tokens.shape[1], x),
-            enc_out=enc_out,
+            enc_out=enc_out, remat=remat,
         )
         return _logits(cfg, params, x)
     tokens = batch["tokens"]
@@ -218,25 +245,43 @@ def forward(cfg: ModelConfig, params, batch):
         x = torch.cat([fe, x], dim=1)
     positions = _positions(x.shape[1], x)
     if cfg.family == "hybrid":
-        x = _hybrid_forward(cfg, params, x, positions)
+        x = _hybrid_forward(cfg, params, x, positions, remat=remat)
     else:
-        x = _scan_blocks(cfg, params["blocks"], x, positions)
+        x = _scan_blocks(cfg, params["blocks"], x, positions, remat=remat)
     return _logits(cfg, params, x)
 
 
-def _hybrid_forward(cfg, params, x, positions):
-    """zamba2: groups of mamba layers + one SHARED attention block."""
+def _hybrid_forward(cfg, params, x, positions, remat=True):
+    """zamba2: groups of mamba layers + one SHARED attention block (not
+    checkpointed, as in the reference)."""
     per = cfg.attn_every
     n_groups = cfg.n_layers // per
+    layers = _layers(params["blocks"])
     for i in range(n_groups):
-        sub = L.tree_map(lambda a: a[i * per : (i + 1) * per], params["blocks"])
-        x = _scan_blocks(cfg, sub, x, positions)
+        x = _run_layers(cfg, layers[i * per : (i + 1) * per], True, x, positions, remat=remat)
         x = _dense_block(cfg, params["shared_attn"], x, positions, 1)
     rem = cfg.n_layers - n_groups * per
     if rem:
-        sub = L.tree_map(lambda a: a[-rem:], params["blocks"])
-        x = _scan_blocks(cfg, sub, x, positions)
+        x = _run_layers(cfg, layers[-rem:], True, x, positions, remat=remat)
     return x
+
+
+def loss_fn(cfg: ModelConfig, params, batch, remat=True):
+    """Mean next-token negative log-likelihood over the float32 logits.
+
+    batch: dict(tokens, labels, [frontend]); a label < 0 is masked out,
+    and the VLM's patch positions are cut before the loss.
+    """
+    logits = forward(cfg, params, batch, remat=remat)
+    labels = batch["labels"].long()
+    if cfg.frontend == "vlm" and "frontend" in batch:
+        logits = logits[:, batch["frontend"].shape[1] :]
+    lse = torch.logsumexp(logits, dim=-1)
+    # a masked label reads position 0; its term is multiplied by 0 below
+    ll = torch.gather(logits, -1, labels.clamp(min=0)[..., None])[..., 0]
+    mask = (labels >= 0).float()
+    nll = (lse - ll) * mask
+    return torch.sum(nll) / torch.clamp(torch.sum(mask), min=1.0)
 
 
 # ------------------------------------------------------------------ serving
@@ -281,10 +326,9 @@ def encdec_prepare_cross(cfg: ModelConfig, params, enc_out):
     """Project encoder output to per-layer cross K/V caches (prefill)."""
     hd = cfg.hd
     b, s, _ = enc_out.shape
-    blocks = params["dec_blocks"]
     ks, vs = [], []
-    for i in range(_n_layers(blocks)):
-        cross = _layer(blocks, i)["cross"]
+    for layer in _layers(params["dec_blocks"]):
+        cross = layer["cross"]
         ks.append((enc_out @ cross["wk"].to(enc_out.dtype)).reshape(b, s, cfg.n_kv_heads, hd))
         vs.append((enc_out @ cross["wv"].to(enc_out.dtype)).reshape(b, s, cfg.n_kv_heads, hd))
     return torch.stack(ks), torch.stack(vs)
@@ -292,8 +336,7 @@ def encdec_prepare_cross(cfg: ModelConfig, params, enc_out):
 
 def _mamba_decode_layers(cfg, blocks, x, cache, lo: int):
     """Mamba decode over the stacked ``blocks``, on cache layers from ``lo``."""
-    for i in range(_n_layers(blocks)):
-        bp = _layer(blocks, i)
+    for i, bp in enumerate(_layers(blocks)):
         h = L.rmsnorm(x, bp["ln"], cfg.norm_eps)
         y, st, cv = L.mamba_decode(
             cfg, bp["mamba"], h, cache["state"][lo + i], cache["conv"][lo + i]
@@ -319,8 +362,7 @@ def decode_step(cfg: ModelConfig, params, cache, token, pos: int):
     x = shard(x, "batch", "embed")
 
     if cfg.family in ("dense", "moe"):
-        for i in range(cfg.n_layers):
-            bp = _layer(params["blocks"], i)
+        for i, bp in enumerate(_layers(params["blocks"])):
             window = None
             if cfg.window is not None:
                 window = cfg.window if i % 2 == 0 else 1 << 30
@@ -342,8 +384,7 @@ def decode_step(cfg: ModelConfig, params, cache, token, pos: int):
                 m = L.rmsnorm(m, bp["ln_mlp_post"], cfg.norm_eps)
             x = x2 + m
     elif cfg.family == "mla":
-        for i in range(cfg.n_layers):
-            bp = _layer(params["blocks"], i)
+        for i, bp in enumerate(_layers(params["blocks"])):
             h = L.rmsnorm(x, bp["ln_attn"], cfg.norm_eps)
             a, _ = L.mla_attention(
                 cfg, bp["attn"], h[:, None, :], None,
@@ -369,8 +410,7 @@ def decode_step(cfg: ModelConfig, params, cache, token, pos: int):
             x = x + L.mlp(cfg, bp["mlp"], h)
     elif cfg.family == "encdec":
         hd = cfg.hd
-        for i in range(cfg.dec_layers):
-            bp = _layer(params["dec_blocks"], i)
+        for i, bp in enumerate(_layers(params["dec_blocks"])):
             h = L.rmsnorm(x, bp["ln_attn"], cfg.norm_eps)
             a, _, _ = L.attention_decode(
                 cfg, bp["attn"], h, cache["k"][i], cache["v"][i], pos
@@ -421,7 +461,14 @@ class _Tree(nn.Module):
 class LanguageModel(nn.Module):
     """A value tree as an ``nn.Module``: ``.to()``, ``state_dict()`` and
     ``parameters()`` see every tensor; ``params`` gives the tree back for
-    the functional entry points."""
+    the functional entry points.
+
+    Its tensors are frozen, as serving holds them. To train, turn on
+    ``requires_grad_(True)`` on the leaves (``make_train_step`` does so on
+    its first call); ``loss_fn`` on ``params`` is then differentiable,
+    training holds a grad per leaf, and the train step updates the
+    parameters in place, so this module sees each step's values.
+    """
 
     def __init__(self, cfg: ModelConfig, params: dict):
         super().__init__()
@@ -432,8 +479,8 @@ class LanguageModel(nn.Module):
     def params(self) -> dict:
         return self.tree.values()
 
-    def forward(self, batch):
-        return forward(self.cfg, self.params, batch)
+    def forward(self, batch, remat=True):
+        return forward(self.cfg, self.params, batch, remat=remat)
 
     def decode_step(self, cache, token, pos: int):
         return decode_step(self.cfg, self.params, cache, token, pos)

@@ -47,7 +47,11 @@ def test_port_imports_neither_jax_nor_repro():
             "repro_torch.bench.run", "repro_torch.configs.base",
             "repro_torch.configs.qwen2_5_3b", "repro_torch.models.sharding",
             "repro_torch.models.layers", "repro_torch.models.model",
-            "repro_torch.models.kvcache", "repro_torch.models.convert"} <= set(MODULES)
+            "repro_torch.models.kvcache", "repro_torch.models.convert",
+            "repro_torch.train.optimizer", "repro_torch.train.train_step",
+            "repro_torch.train.checkpoint", "repro_torch.train.compress",
+            "repro_torch.train.minipack", "repro_torch.data.pipeline",
+            "repro_torch.launch.train"} <= set(MODULES)
 
 
 FORBIDDEN = re.compile(
@@ -93,6 +97,9 @@ def _entry_points():
     from repro_torch.models.kvcache import PrefixCache, RemixPageTable
     from repro_torch.models.model import init_cache, init_params
     from repro_torch.models.convert import params_from_numpy
+    from repro_torch.data.pipeline import DataPipeline
+    from repro_torch.launch.train import main as train_main
+    from repro_torch.train.checkpoint import restore
 
     lm = reduced(get_config("qwen2.5-3b"), n_layers=1, d_model=64, d_ff=64, vocab=32)
     k = np.zeros((1, 2), np.uint32)
@@ -122,6 +129,9 @@ def _entry_points():
         "RemixPageTable": lambda tmp: RemixPageTable(),
         "PrefixCache": lambda tmp: PrefixCache(lm, 4),
         "ServeEngine": lambda tmp: ServeEngine(lm, {}),
+        "DataPipeline.get_batch": lambda tmp: DataPipeline(vocab=32, batch=1, seq=4).get_batch(0),
+        "checkpoint.restore": lambda tmp: restore(str(tmp / "ckpt")),
+        "launch.train.main": lambda tmp: train_main(["--steps", "1", "--ckpt", str(tmp / "c")]),
     }
 
 

@@ -3,6 +3,7 @@ configs and params, carried into the port through ``params_from_numpy``."""
 import dataclasses
 
 import numpy as np
+import pytest
 
 import jax
 import jax.numpy as jnp
@@ -47,3 +48,16 @@ def f32(x) -> np.ndarray:
     if isinstance(x, torch.Tensor):
         return x.detach().float().cpu().numpy()
     return np.asarray(x, np.float32)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op torch thread for the module that imports this fixture.
+    The suite runs several workers on the machine's cores, and a default
+    thread team in each oversubscribes them: a training loop of small ops
+    then waits on every op's team (the training files ran 7-35x slower
+    than alone)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
