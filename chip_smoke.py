@@ -146,6 +146,22 @@ Phases, each fatal on failure:
    (reduced qwen2.5-3b, 40 steps, the loss down by more than 0.3) and
    exact resume, bit for bit under deterministic algorithms. No kernel of
    ``csrc/`` is on this path (the counts are printed).
+11. launch — the port's ``launch/`` (device meshes, the fake-mesh dry run,
+   the H100 roofline): (a) the dry run's per-device counting
+   (``launch.dryrun.count_step``) on phase 10's own step — qwen2.5-3b at
+   its published widths, 8 x 128 tokens, AdamW — on fake card tensors on
+   a 1 x 1 mesh: FLOPs, eager bytes, the peak of live allocations and the
+   roofline terms beside phase 10's measured busy and wall ms and peak
+   bytes, and the counted FLOPs beside the hand count (6 N D; 8 N D with
+   the recompute); (b) ``python -m repro_torch.launch.dryrun`` for the
+   cells of ``DRYRUN_CELLS`` at full width on the fake ``(32, 8)`` mesh of
+   256 ranks (one process each, started together), each record and its
+   roofline row printed; (c) the launcher at ``--reduced`` on the card's
+   mesh (``make_debug_mesh``: 1 x 1 here): trained and saved, its
+   checkpoint restored through ``restore(shardings=...)`` onto that mesh
+   and held to the trained state bit for bit, then ``--resume``. Both
+   kernels' launch counts over (a) and (c) are printed (no kernel of
+   ``csrc/`` is on this path).
 
 The last lines are one JSON object listing the kernels, the card's name
 and power limit from nvidia-smi, and ``{"ok": true, "device": ...}``.
@@ -272,6 +288,11 @@ TRAIN_CHECK_BATCH = (1, 32)
 TRAIN_F32_LOSS_ATOL, TRAIN_F32_GRAD_RTOL = 1e-4, 1e-4
 TRAIN_BF16_LOSS_ATOL, TRAIN_BF16_GRAD_RTOL = 2e-2, 0.1
 DEV = "cuda"
+# phase 11: the production-mesh dry-run cells (the reference test's two
+# and the store's service cell); each runs in its own process
+DRYRUN_CELLS = (("qwen2.5-3b", "train_4k"), ("mamba2-130m", "decode_32k"),
+                ("remixdb", "service"))
+DRYRUN_TIMEOUT = 300
 HBM_BPS = 3.35e12  # H100 SXM device memory, bytes/s
 BF16_FLOPS = 989e12  # H100 SXM dense bfloat16 tensor-core peak, FLOP/s
 INT32_LANES_PER_SM = 64  # Hopper SM: 4 partitions x 16 INT32 lanes (H100 whitepaper)
@@ -3157,6 +3178,7 @@ def _train_full_width(card, root, launches):
         log(f"[train] {card}: restore: {nb:,} B onto the card in {dt:.2f} s "
             f"({nb / dt / 1e9:.2f} GB/s)")
     del rp, ro, batch, step, resumed
+    return dict(step_ms=float(np.median(steady)), peak=peak, prof=prof)
 
 
 def _train_launcher_resume(card, root, launches):
@@ -3255,7 +3277,8 @@ def _train_learns(card, root):
 
 def phase_train(rng, card):
     """LM training (module docstring, phase 10). Returns both kernels'
-    launch counts over the launcher's runs."""
+    launch counts over the launcher's runs, and the full-width step's
+    measurements (median ms, peak bytes, the profiled step) for phase 11."""
     import dataclasses
     import gc
 
@@ -3280,11 +3303,179 @@ def phase_train(rng, card):
                                 TRAIN_F32_LOSS_ATOL, TRAIN_F32_GRAD_RTOL)
     launches = {"anchor_search": 0, "selector_decode": 0}
     with tempfile.TemporaryDirectory() as root:
-        _train_full_width(card, root, launches)
+        measured = _train_full_width(card, root, launches)
         _train_launcher_resume(card, root, launches)
         _train_learns(card, root)
     log(f"[train] {card}: kernel launches of csrc/ on this path {launches}")
     log(f"[train] phase 10 ran {time.perf_counter() - t_phase:.1f} s")
+    return launches, measured
+
+
+def _dryrun_cells():
+    """Start one dry-run process per cell of ``DRYRUN_CELLS`` (fake card
+    tensors on the fake (32, 8) mesh)."""
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    return [(arch, shape, time.perf_counter(), subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch, "--shape", shape,
+         "--device", DEV], cwd=str(ROOT), env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)) for arch, shape in DRYRUN_CELLS]
+
+
+def _dryrun_records(card, procs):
+    """Each cell's record and roofline row; fails on a failed cell."""
+    from repro_torch.launch import roofline as RF
+
+    rows = []
+    for arch, shape, t0, p in procs:
+        try:
+            out, err = p.communicate(timeout=DRYRUN_TIMEOUT)
+        except subprocess.TimeoutExpired:
+            p.kill()
+            p.communicate()
+            check(False, f"dry run {arch} {shape} did not end in {DRYRUN_TIMEOUT} s")
+        wall = time.perf_counter() - t0
+        check(p.returncode == 0, f"dry run {arch} {shape} failed (rc {p.returncode}):\n"
+              f"{out[-2000:]}{err[-3000:]}")
+        rec = json.loads(out.strip().splitlines()[-1])
+        check(rec["status"] == "ok" and rec["chips"] == 256 and rec["collectives"]["total"] > 0,
+              f"dry run {arch} {shape}: {rec}")
+        row = RF.analyze_cell(rec)
+        log(f"[launch] dry run {arch} {shape} on the fake {rec['mesh']} mesh, process wall "
+            f"{wall:.1f} s: {json.dumps(rec)}")
+        log(f"[launch] roofline ({card}'s constants): {RF.table_row(row)}")
+        rows.append(row)
+    return rows
+
+
+def _count_train_step(card, measured):
+    """The dry run's counting on phase 10's step, on fake card tensors on a
+    1 x 1 mesh, beside what phase 10 measured and the hand count."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import roofline as RF
+    from repro_torch.launch.dryrun import count_step
+    from repro_torch.launch.mesh import ensure_process_group, make_debug_mesh, mesh_name
+    from repro_torch.launch.shapes import sds
+    from repro_torch.models.sharding import ShardingRules, set_rules
+    from repro_torch.train.optimizer import OptConfig
+
+    cfg = get_config(TRAIN_ARCH)
+    started = ensure_process_group(DEV)
+    try:
+        mesh = make_debug_mesh(device=DEV)
+        rules = ShardingRules(mesh=mesh)
+        set_rules(rules)
+        tokens = TRAIN_BATCH * TRAIN_SEQ
+        spec = dict(kind="train", batch=dict(
+            tokens=sds((TRAIN_BATCH, TRAIN_SEQ), torch.int32),
+            labels=sds((TRAIN_BATCH, TRAIN_SEQ), torch.int32)))
+        rec = dict(arch=TRAIN_ARCH, shape=f"train_{TRAIN_BATCH}x{TRAIN_SEQ}",
+                   mesh=mesh_name(mesh), chips=mesh.size(), tokens=tokens)
+        t0 = time.perf_counter()
+        rec = count_step(rec, cfg, spec, rules, DEV,
+                         opt_cfg=OptConfig(total_steps=TRAIN_STEPS))
+        t_count = time.perf_counter() - t0
+    finally:
+        set_rules(ShardingRules(mesh=None))
+        if started:
+            dist.destroy_process_group()
+    row = RF.analyze_cell(rec)
+    n = cfg.n_params()
+    hand, hand_remat = 6 * n * tokens, 8 * n * tokens
+    log(f"[launch] {card}: the dry run's counting on phase 10's step ({TRAIN_ARCH} at its "
+        f"published widths, {TRAIN_BATCH} x {TRAIN_SEQ} tokens, AdamW, fake card tensors on "
+        f"the {rec['mesh']} mesh, counted in {t_count:.1f} s): {json.dumps(rec)}")
+    log(f"[launch] {card}: counted {rec['flops']:.4e} FLOP against the hand count 6 N D = "
+        f"{hand:.4e} ({rec['flops'] / hand - 1:+.1%}) and 8 N D with the recompute = "
+        f"{hand_remat:.4e} ({rec['flops'] / hand_remat - 1:+.1%}); eager bytes "
+        f"{rec['bytes_accessed']:.4e}; peak live allocations {rec['temp_bytes']:,} B beside "
+        f"{rec['arg_bytes']:,} B of args")
+    prof = measured.get("prof") or {}
+    busy = prof.get("busy_us", float("nan")) / 1e3
+    wall = prof.get("wall_us", float("nan")) / 1e3
+    log(f"[launch] {card}: roofline of that step: compute {row['t_compute'] * 1e3:.2f} ms, "
+        f"memory {row['t_memory'] * 1e3:.2f} ms (eager bytes), collective "
+        f"{row['t_collective'] * 1e3:.2f} ms, bottleneck {row['bottleneck']}, useful ratio "
+        f"{row['useful_ratio']:.3f}, roofline_frac {row['roofline_frac']:.4f}; phase 10 "
+        f"measured the step at {measured['step_ms']:.1f} ms (median, host clock), "
+        f"{busy:.1f} ms device busy and {wall:.1f} ms wall (profiled step), peak device bytes "
+        f"{measured['peak']:,} (the state {rec['arg_bytes']:,} B + the counted peak "
+        f"{rec['temp_bytes']:,} B = {rec['arg_bytes'] + rec['temp_bytes']:,} B); measured "
+        f"busy over the roofline's bound {busy / (max(row['t_compute'], row['t_memory']) * 1e3):.2f}")
+    check(rec["status"] == "ok" and rec["flops"] > hand and rec["collectives"]["total"] == 0,
+          f"phase 10's step counted: {rec}")
+    return rec, row
+
+
+def _launch_mesh_resume(card, root, launches):
+    """The launcher at ``--reduced`` on the card's mesh, saved; that
+    checkpoint restored through ``restore(shardings=...)`` onto the mesh
+    and held to the trained state bit for bit; then ``--resume``."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.launch import train as TL
+    from repro_torch.launch.mesh import ensure_process_group, make_debug_mesh
+    from repro_torch.models.sharding import ShardingRules
+    from repro_torch.train import checkpoint as C
+    from repro_torch.train.optimizer import flat_leaves
+
+    d = str(Path(root) / "mesh")
+    argv = ["--arch", TRAIN_ARCH, "--batch", str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ),
+            "--ckpt", d, "--device", DEV]
+    pv, opt = run_counted("launch", f"reduced {TRAIN_ARCH} launch.train.main, {TRAIN_STEPS} "
+                          f"steps on make_debug_mesh()",
+                          lambda: TL.main(argv + ["--steps", str(TRAIN_STEPS)]), launches,
+                          require=False)
+    started = ensure_process_group(DEV)
+    try:
+        mesh = make_debug_mesh(device=DEV)
+        rules = ShardingRules(mesh=mesh)
+        shapes, pax = TL.param_axes(reduced(get_config(TRAIN_ARCH)))
+        pshard = TL.tree_map2(lambda s, ax: (mesh, rules.placements(ax, s)), shapes, pax)
+        oshard = dict(mu=pshard, nu=pshard, step=(mesh, rules.placements((), ())))
+        rp, ro, extra = C.restore(d, shardings=(pshard, oshard), device=DEV)
+        shape = tuple(mesh.shape)
+    finally:
+        if started:
+            dist.destroy_process_group()
+    a, b = flat_leaves(dict(p=pv, o=opt)), flat_leaves(dict(p=rp, o=ro))
+    same = sum(type(y) is torch.Tensor and y.device == x.device and torch.equal(x, y)
+               for x, y in zip(a, b))
+    log(f"[launch] {card}: reduced {TRAIN_ARCH} checkpoint of step {TRAIN_STEPS} restored "
+        f"through restore(shardings=...) onto the card's {shape} mesh: {same} of {len(a)} "
+        f"leaves bit-identical to the trained state, on {b[0].device}; data step "
+        f"{extra['data']['step']}")
+    check(same == len(a) == len(b) and extra["data"]["step"] == TRAIN_STEPS,
+          f"mesh restore differs: {same}/{len(a)}")
+    _, opt2 = run_counted("launch", f"reduced {TRAIN_ARCH} launch.train.main --resume",
+                          lambda: TL.main(argv + ["--steps", str(TRAIN_STEPS + 1), "--resume"]),
+                          launches, require=False)
+    check(int(opt2["step"]) == TRAIN_STEPS + 1, f"mesh resume: opt step {int(opt2['step'])}")
+
+
+def phase_launch(card, measured):
+    """Device meshes, the dry run and the roofline (module docstring, phase
+    11). Returns both kernels' launch counts over (a) and (c)."""
+    t_phase = time.perf_counter()
+    procs = _dryrun_cells()  # (b) runs beside (a) and (c)
+    launches = {"anchor_search": 0, "selector_decode": 0}
+    try:
+        run_counted("launch", "the dry run's counting on phase 10's step",
+                    lambda: _count_train_step(card, measured), launches, require=False)
+        with tempfile.TemporaryDirectory() as root:
+            _launch_mesh_resume(card, root, launches)
+        _dryrun_records(card, procs)
+    finally:
+        for *_, p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    log(f"[launch] {card}: kernel launches of csrc/ on this path {launches}")
+    log(f"[launch] phase 11 ran {time.perf_counter() - t_phase:.1f} s")
     return launches
 
 
@@ -3347,10 +3538,12 @@ def main() -> int:
         phase_llm(rng, card)
         mark("phase 9")
         del mgr, views, starts, parts, domains, oracles
-        train_launches = phase_train(rng, card)
+        train_launches, measured = phase_train(rng, card)
         mark("phase 10")
+        launch_launches = phase_launch(card, measured)
+        mark("phase 11")
         launches = {k: n + store_launches[k] + fleet_launches[k] + paper_launches[k]
-                    + train_launches[k] for k, n in launches.items()}
+                    + train_launches[k] + launch_launches[k] for k, n in launches.items()}
         for t in timings:
             t["shapes"] += (idx_shapes[t["name"]] + store_shapes[t["name"]]
                             + fleet_shapes[t["name"]] + paper_shapes[t["name"]])

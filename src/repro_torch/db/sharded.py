@@ -107,9 +107,22 @@ def _all_to_all(x: torch.Tensor, group) -> torch.Tensor:
     return out
 
 
+def shard_axes(mesh) -> tuple[str, ...]:
+    """All mesh axes — the store shards over the full device fabric."""
+    return tuple(mesh.mesh_dim_names)
+
+
+def shard_group(mesh):
+    """The process group over every rank of ``mesh`` (its flattened mesh:
+    rank order is row-major over :func:`shard_axes`, the reference's
+    shard order)."""
+    return (mesh if mesh.ndim == 1 else mesh._flatten()).get_group()
+
+
 def make_sharded_get(cfg, group=None):
-    """The distributed point-query step over ``group`` (default: the
-    default process group). Returns ``(step, n_shards)``.
+    """The distributed point-query step over ``group``: a process group,
+    a ``DeviceMesh`` (its flattened group, :func:`shard_group`), or None
+    for the default process group. Returns ``(step, n_shards)``.
 
     ``step(remix, runset, queries)`` takes this rank's shard and its slice
     (nq, KW) of the global query batch (rank i holds rows
@@ -120,7 +133,10 @@ def make_sharded_get(cfg, group=None):
     last slot leaves that slot's query dropped too.
     """
     import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
 
+    if isinstance(group, DeviceMesh):
+        group = shard_group(group)
     n_shards = dist.get_world_size(group)
 
     def step(remix: Remix, runset: RunSet, q_l: torch.Tensor):
@@ -130,19 +146,24 @@ def make_sharded_get(cfg, group=None):
         cap = max(1, 2 * nq // n_shards)
         order = torch.argsort(owner, stable=True)
         so, sq = owner[order].long(), q_l[order]
-        counts = torch.bincount(owner.long(), minlength=n_shards)
+        # shapes stay static (no bincount, no boolean mask), so the step
+        # also runs on fake tensors in the dry run
+        counts = torch.zeros(n_shards, dtype=torch.long, device=dev)
+        counts.index_add_(0, so, torch.ones_like(so))
         starts = torch.cumsum(counts, 0) - counts
         slot = torch.arange(nq, device=dev) - starts[so]
         ok = slot < cap
-        out_q = torch.zeros((n_shards, cap, kw), dtype=q_l.dtype, device=dev)
-        filled = torch.zeros((n_shards, cap), dtype=torch.uint8, device=dev)
-        out_q[so[ok], slot[ok]] = sq[ok]
-        filled[so[ok], slot[ok]] = 1
+        col = torch.where(ok, slot, cap)  # overflow → a spare column, cut below
+        out_q = torch.zeros((n_shards, cap + 1, kw), dtype=q_l.dtype, device=dev)
+        filled = torch.zeros((n_shards, cap + 1), dtype=torch.uint8, device=dev)
+        out_q[so, col] = sq
+        filled[so, col] = 1
         # the reference scatters every overflow query into slot cap - 1
         # after the one that fits there, so its (zero) query wins
-        over = counts > cap
-        out_q[over, cap - 1] = 0
-        filled[over, cap - 1] = 0
+        over = (counts > cap)[:, None]
+        out_q[:, cap - 1] = torch.where(over, 0, out_q[:, cap - 1])
+        filled[:, cap - 1] = torch.where(over[:, 0], 0, filled[:, cap - 1])
+        out_q, filled = out_q[:, :cap], filled[:, :cap]
         q_in = _all_to_all(out_q, group)  # (n_shards, cap, KW)
         f_in = _all_to_all(filled, group)
         found, vals = Q.get(remix, runset, q_in.reshape(-1, kw))

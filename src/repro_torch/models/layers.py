@@ -22,7 +22,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.sharding import shard
+from repro_torch.models.sharding import get_rules, shard, shard_index
 
 NEG = -1e30  # masked score
 
@@ -93,6 +93,25 @@ def softplus(x):
     return torch.clamp(x, min=0) + torch.log1p(torch.exp(-torch.abs(x)))
 
 
+def reshape(x, *shape):
+    """``x.reshape(shape)``. On a mesh, DTensor refuses a view that splits
+    a sharded dim unevenly (GSPMD would re-shard instead): such a DTensor
+    is first replicated on its sharded dims past the leading dims that the
+    view keeps. A plain tensor is only reshaped."""
+    if not hasattr(x, "placements"):
+        return x.reshape(*shape)
+    try:
+        return x.reshape(*shape)
+    except RuntimeError:
+        from torch.distributed.tensor import Replicate
+
+        keep = 0
+        while keep < min(x.ndim, len(shape)) and x.shape[keep] == shape[keep]:
+            keep += 1
+        pl = [Replicate() if p.is_shard() and p.dim >= keep else p for p in x.placements]
+        return x.redistribute(x.device_mesh, pl).reshape(*shape)
+
+
 def cdtype(cfg: ModelConfig):
     return torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
 
@@ -132,9 +151,10 @@ def softcap(x, cap):
 
 
 # ------------------------------------------------------------ flash attention
+
 def flash_attention(
     q, k, v, *, causal=True, window=None, cap=None, q_offset=0, kv_len=None,
-    block=512,
+    block=512, pin_kv=True,
 ):
     """Blocked online-softmax attention.
 
@@ -146,7 +166,22 @@ def flash_attention(
     self-attention with ``causal=True`` the above-diagonal pairs are
     pruned. ``q_offset`` is the absolute position of q[0]; ``kv_len``
     masks the valid prefix of k/v.
+
+    ``pin_kv`` (on a mesh) places K/V by batch only, replicated over the
+    model axis, as the reference does: GQA kv heads are few, and a
+    sub-sharded kvh would be re-gathered at every pair. Training turns it
+    off (its backward re-gathers the cotangents). Without a mesh it
+    changes nothing.
+
+    On a mesh (DTensor inputs, :func:`_flash_on_mesh`) every (batch, head)
+    is independent: K/V are expanded to the H query heads and placed as q
+    is, and this function runs on each device's local batch and heads.
     """
+    if hasattr(q, "placements"):
+        return _flash_on_mesh(
+            q, k, v, causal=causal, window=window, cap=cap, q_offset=q_offset,
+            kv_len=kv_len, block=block, pin_kv=pin_kv,
+        )
     orig_dtype = q.dtype
     b, sq, h, hd = q.shape
     hd_v = v.shape[-1]
@@ -205,6 +240,33 @@ def flash_attention(
     return out.to(orig_dtype)
 
 
+def _flash_on_mesh(q, k, v, *, pin_kv, **kw):
+    """:func:`flash_attention` of DTensors, shard-map style: K/V pinned by
+    batch (``pin_kv``), expanded from KVH to the H query heads, then q, K
+    and V placed by (batch, seq, heads) and the plain function run on each
+    device's local tensors (``local_map``). DTensor would otherwise have
+    to split a model-sharded head dim into (KVH, groups) and flatten the
+    sharded batch and head dims into one matmul batch, which it cannot do
+    without gathering."""
+    from torch.distributed.tensor.experimental import local_map
+
+    b, sk, kvh, _ = k.shape
+    h = q.shape[2]
+    if pin_kv:
+        k = shard(k, "batch", None, None, None)
+        v = shard(v, "batch", None, None, None)
+    if h != kvh:
+        k, v = (t[:, :, :, None].expand(b, sk, kvh, h // kvh, t.shape[-1])
+                .reshape(b, sk, h, t.shape[-1]) for t in (k, v))
+    rules = get_rules()
+    pl = [rules.placements(("batch", "seq", "heads", None), t.shape) for t in (q, k, v)]
+    return local_map(
+        lambda ql, kl, vl: flash_attention(ql, kl, vl, pin_kv=False, **kw),
+        out_placements=pl[0], in_placements=tuple(pl), in_grad_placements=tuple(pl),
+        device_mesh=q.device_mesh, redistribute_inputs=True,
+    )(q, k, v)
+
+
 def decode_attention(q, k_cache, v_cache, *, pos, window=None, cap=None):
     """Single-token attention over a KV cache.
 
@@ -214,7 +276,7 @@ def decode_attention(q, k_cache, v_cache, *, pos, window=None, cap=None):
     b, h, hd = q.shape
     s, kvh = k_cache.shape[1], k_cache.shape[2]
     groups = h // max(1, kvh)
-    qg = (q * scalar(1.0 / math.sqrt(hd), q)).reshape(b, kvh, groups, hd)
+    qg = reshape(q * scalar(1.0 / math.sqrt(hd), q), b, kvh, groups, hd)
     scores = torch.einsum("bkgd,bskd->bkgs", qg.float(), k_cache.float())
     scores = softcap(scores, cap)
     kpos = _arange(s, q)
@@ -224,7 +286,7 @@ def decode_attention(q, k_cache, v_cache, *, pos, window=None, cap=None):
     scores = torch.where(mask[None, None, None, :], scores, NEG)
     w = torch.softmax(scores, dim=-1)
     out = torch.einsum("bkgs,bskd->bkgd", w, v_cache.float())
-    return out.reshape(b, h, hd).to(q.dtype)
+    return reshape(out, b, h, hd).to(q.dtype)
 
 
 # ------------------------------------------------------------------ attention
@@ -245,7 +307,7 @@ def init_attention(cfg: ModelConfig, gen):
 
 def attention(
     cfg: ModelConfig, p, x, positions, *, causal=True, window=None,
-    kv_override=None,
+    kv_override=None, pin_kv=True,
 ):
     """Full-sequence attention (train / prefill). x: (B, S, D)."""
     b, s, _ = x.shape
@@ -257,18 +319,20 @@ def attention(
         q = q + p["bq"].to(x.dtype)
         k = k + p["bk"].to(x.dtype)
         v = v + p["bv"].to(x.dtype)
-    q = q.reshape(b, s, cfg.n_heads, hd)
+    q = reshape(q, b, s, cfg.n_heads, hd)
     sk = k.shape[1]
-    k = k.reshape(b, sk, cfg.n_kv_heads, hd)
-    v = v.reshape(b, sk, cfg.n_kv_heads, hd)
+    k = reshape(k, b, sk, cfg.n_kv_heads, hd)
+    v = reshape(v, b, sk, cfg.n_kv_heads, hd)
     q = shard(q, "batch", "seq", "heads", None)
     k = shard(k, "batch", "seq", "kv_heads", None)
     if causal or kv_override is None:
         q = rope(q, positions, cfg.rope_theta)
         kpos = positions if kv_override is None else _arange(sk, x)[None, :]
         k = rope(k, kpos, cfg.rope_theta)
-    out = flash_attention(q, k, v, causal=causal, window=window, cap=cfg.attn_softcap)
-    out = out.reshape(b, s, cfg.n_heads * hd)
+    out = flash_attention(
+        q, k, v, causal=causal, window=window, cap=cfg.attn_softcap, pin_kv=pin_kv
+    )
+    out = reshape(out, b, s, cfg.n_heads * hd)
     out = out @ p["wo"].to(x.dtype)
     return shard(out, "batch", "seq", "embed")
 
@@ -285,9 +349,9 @@ def attention_decode(cfg: ModelConfig, p, x, k_cache, v_cache, pos, *, window=No
         q = q + p["bq"].to(x.dtype)
         k = k + p["bk"].to(x.dtype)
         v = v + p["bv"].to(x.dtype)
-    q = q.reshape(b, 1, cfg.n_heads, hd)
-    k = k.reshape(b, 1, cfg.n_kv_heads, hd)
-    v = v.reshape(b, 1, cfg.n_kv_heads, hd)
+    q = reshape(q, b, 1, cfg.n_heads, hd)
+    k = reshape(k, b, 1, cfg.n_kv_heads, hd)
+    v = reshape(v, b, 1, cfg.n_kv_heads, hd)
     posv = torch.full((b, 1), pos, dtype=torch.int32, device=x.device)
     q = rope(q, posv, cfg.rope_theta)[:, 0]
     k = rope(k, posv, cfg.rope_theta)
@@ -316,7 +380,9 @@ def init_mla(cfg: ModelConfig, gen):
     )
 
 
-def mla_attention(cfg: ModelConfig, p, x, positions, *, decode_cache=None, pos=None):
+def mla_attention(
+    cfg: ModelConfig, p, x, positions, *, decode_cache=None, pos=None, pin_kv=True
+):
     """Multi-head latent attention (prefill path expands the latent).
 
     Cache stores the compressed (kv_lora + qk_rope) latent per position;
@@ -339,7 +405,7 @@ def mla_attention(cfg: ModelConfig, p, x, positions, *, decode_cache=None, pos=N
         k_nope, v = kvx[..., :dn], kvx[..., dn:]
         k = torch.cat([k_nope, k_rope_h.expand(b, s, h, dr)], -1)
         qf = torch.cat([q_nope, q_rope], -1)
-        out = flash_attention(qf, k, v, causal=True)
+        out = flash_attention(qf, k, v, causal=True, pin_kv=pin_kv)
         out = out.reshape(b, s, h * dv) @ p["wo"].to(x.dtype)
         new_cache = torch.cat([latent, k_rope], -1)  # (B,S,kv_lora+dr)
         return shard(out, "batch", "seq", "embed"), new_cache
@@ -390,7 +456,10 @@ def mlp(cfg: ModelConfig, p, x):
     u = x @ p["w_up"].to(x.dtype)
     names = ("batch", "seq", "mlp") if x.ndim == 3 else ("batch", "mlp")
     h = shard(g * u, *names)
-    return h @ p["w_down"].to(x.dtype)
+    # on a mesh the down projection is a partial sum over the mlp's shards:
+    # reduced here, as attention's output is, so that the residual stream
+    # stays placed by batch (DTensor would otherwise carry the partial on)
+    return shard(h @ p["w_down"].to(x.dtype), *names[:-1], "embed")
 
 
 def init_moe(cfg: ModelConfig, gen):
@@ -415,12 +484,85 @@ def moe(cfg: ModelConfig, p, x):
 
     dense_ec: capacity-based gather/batched-matmul/scatter.
     ragged: sort + one matmul per expert's contiguous rows (no capacity).
+
+    Without a mesh (or on a mesh of one device) all tokens are one group
+    and every expert is local. On a mesh the tokens and expert weights
+    are DTensors and the work runs shard-map style on local tensors
+    (``local_map``), as the reference's vmap runs under GSPMD:
+
+      - dense_ec with ``moe_local_dispatch``: the tokens split into
+        ``groups = pod x data`` groups of the current mesh (when they
+        divide the token count), each group with its own capacity, sort
+        and scatter (the reference's Switch-style local dispatch); each
+        device takes its own groups;
+      - otherwise one group, its tokens replicated on every device;
+      - experts stay split as the rules place them (``experts`` →
+        ``model``): a device computes its experts' share of its tokens'
+        outputs, and the output is a partial sum over those mesh dims.
     """
     b, s, d = x.shape
     t = b * s
-    e, k = cfg.n_experts, cfg.top_k
     xf = x.reshape(t, d)
-    logits = (xf @ p["router"].float().to(x.dtype)).float()
+    weights = (p["router"], p["w_gate"], p["w_up"], p["w_down"])
+    rules = get_rules()
+    mesh = rules.mesh
+    if mesh is None or mesh.size() == 1:
+        out = _moe_group(cfg, *weights, xf, 0)
+        if cfg.moe_impl == "ragged":
+            return out.reshape(b, s, d).to(x.dtype)
+        return shard(out.reshape(b, s, d), "batch", "seq", "embed").to(x.dtype)
+
+    from torch.distributed.tensor import Partial, Replicate
+    from torch.distributed.tensor.experimental import local_map
+
+    groups = 1
+    if cfg.moe_impl == "dense_ec" and cfg.moe_local_dispatch:
+        sizes = dict(zip(mesh.mesh_dim_names, mesh.shape))
+        groups = math.prod(sizes.get(a, 1) for a in ("pod", "data"))
+        if t % groups:
+            groups = 1
+    tg = t // groups
+    wpl = rules.placements(("experts", None, None), p["w_gate"].shape)
+    rep = [Replicate()] * mesh.ndim
+    if groups > 1:
+        xg = shard(xf.reshape(groups, tg, d), "batch", None, None)
+        tpl = rules.placements(("batch", None, None), (groups, tg, d))
+    else:
+        xg, tpl = xf.reshape(1, t, d), rep
+    ep = [i for i, pl in enumerate(wpl) if pl.is_shard()]  # expert-split mesh dims
+    opl = [Partial() if i in ep else pl for i, pl in enumerate(tpl)]
+    # a device's grads come from its own tokens and its own experts:
+    # partial sums over the mesh dims that split either
+    xgrad = [Partial() if i in ep else pl for i, pl in enumerate(tpl)]
+    rgrad = [Partial() if pl.is_shard() or i in ep else Replicate()
+             for i, pl in enumerate(tpl)]
+    wgrad = [Partial() if t.is_shard() else w for t, w in zip(tpl, wpl)]
+
+    def local(xg_l, router, wg, wu, wd):
+        e0 = shard_index(mesh, ep) * wg.shape[0]
+        return torch.stack([_moe_group(cfg, router, wg, wu, wd, xt, e0) for xt in xg_l])
+
+    out = local_map(
+        local, out_placements=opl,
+        in_placements=(tpl, rep, wpl, wpl, wpl),
+        in_grad_placements=(xgrad, rgrad, wgrad, wgrad, wgrad),
+        device_mesh=mesh, redistribute_inputs=True,
+    )(xg, *weights)
+    out = shard(out, "batch", None, None) if groups > 1 else out
+    return out.reshape(b, s, d).to(x.dtype)
+
+
+def _moe_group(cfg: ModelConfig, router, w_gate, w_up, w_down, xf, e0: int):
+    """One token group xf (T, D) → (T, D) in the experts' product dtype.
+
+    The expert weights hold experts ``e0 .. e0 + len(w_gate)`` of the
+    ``cfg.n_experts``: routing and capacity see every expert; only the
+    held ones are computed, so with all experts held (``e0`` 0, the path
+    without a mesh) this is the whole output, else that share of it."""
+    t, d = xf.shape
+    e, k = cfg.n_experts, cfg.top_k
+    el = w_gate.shape[0]
+    logits = (xf @ router.float().to(xf.dtype)).float()
     gate_w, choice = top_k(logits, k)  # (T, k)
     gate_w = torch.softmax(gate_w, dim=-1)
     act = _act(cfg)
@@ -428,42 +570,44 @@ def moe(cfg: ModelConfig, p, x):
     if cfg.moe_impl == "ragged":
         flat_e = choice.reshape(-1)
         order = torch.argsort(flat_e, stable=True)
-        tok = (_arange(t * k, x) // k)[order]
+        tok = (_arange(t * k, xf) // k)[order]
         xs = xf[tok]  # (T*k, D)
         counts = torch.bincount(flat_e, minlength=e).tolist()
-        ys, lo = [], 0
+        ys, rows, lo = [], [], 0
         for i, c in enumerate(counts):  # the reference's ragged_dot groups
-            if c:
+            if c and e0 <= i < e0 + el:
                 xi = xs[lo : lo + c]
-                g = act(xi @ p["w_gate"][i].to(x.dtype))
-                u = xi @ p["w_up"][i].to(x.dtype)
-                ys.append((g * u) @ p["w_down"][i].to(x.dtype))
+                g = act(xi @ w_gate[i - e0].to(xf.dtype))
+                u = xi @ w_up[i - e0].to(xf.dtype)
+                ys.append((g * u) @ w_down[i - e0].to(xf.dtype))
+                rows.append(_arange(c, xf) + lo)
             lo += c
+        out = torch.zeros((t, d), dtype=xf.dtype, device=xf.device)
+        if not ys:
+            return out
         y = torch.cat(ys)
-        wflat = gate_w.reshape(-1)[order].to(y.dtype)
-        out = torch.zeros((t, d), dtype=y.dtype, device=x.device)
-        out.index_add_(0, tok, y * wflat[:, None])
-        return out.reshape(b, s, d).to(x.dtype)
+        sel = torch.cat(rows) if el < e else slice(None)
+        wflat = gate_w.reshape(-1)[order][sel].to(y.dtype)
+        out.index_add_(0, tok[sel], y * wflat[:, None])
+        return out
 
-    # dense_ec: fixed expert capacity. The reference's moe_local_dispatch
-    # splits the tokens into one group per data shard of its mesh; without
-    # a mesh (the port places no tensor on one) all tokens are one group.
+    # dense_ec: fixed expert capacity
     cap = int(math.ceil(t * k / e * cfg.moe_capacity))
     cap = max(8, -(-cap // 8) * 8)
     flat_e = choice.reshape(-1)  # (T*k,)
-    flat_t = _arange(t * k, x) // k
+    flat_t = _arange(t * k, xf) // k
     order = torch.argsort(flat_e, stable=True)
     se, st_ = flat_e[order], flat_t[order]
     counts = torch.bincount(flat_e, minlength=e)
     starts = torch.cumsum(counts, 0) - counts
-    slot = _arange(t * k, x) - starts[se]  # position within expert
+    slot = _arange(t * k, xf) - starts[se]  # position within expert
     ok = slot < cap
     se_ok, slot_ok = se[ok], slot[ok]
-    gather_idx = torch.zeros((e, cap), dtype=torch.long, device=x.device)
+    gather_idx = torch.zeros((e, cap), dtype=torch.long, device=xf.device)
     gather_idx[se_ok, slot_ok] = st_[ok]
-    filled = torch.zeros((e, cap), dtype=torch.bool, device=x.device)
+    filled = torch.zeros((e, cap), dtype=torch.bool, device=xf.device)
     filled[se_ok, slot_ok] = True
-    wslot = torch.zeros((e, cap), dtype=torch.float32, device=x.device)
+    wslot = torch.zeros((e, cap), dtype=torch.float32, device=xf.device)
     wslot[se_ok, slot_ok] = gate_w.reshape(-1)[order][ok]
     # The reference points every over-capacity entry at slot cap-1 and
     # scatters (index 0, not filled, weight 0) there; on the CPU the last
@@ -472,15 +616,16 @@ def moe(cfg: ModelConfig, p, x):
     gather_idx[over, cap - 1] = 0
     filled[over, cap - 1] = False
     wslot[over, cap - 1] = 0.0
-    xe = xf[gather_idx] * filled[..., None].to(x.dtype)  # (E,C,D)
-    g_ = act(torch.einsum("ecd,edf->ecf", xe, p["w_gate"].to(x.dtype)))
-    u_ = torch.einsum("ecd,edf->ecf", xe, p["w_up"].to(x.dtype))
-    y = torch.einsum("ecf,efd->ecd", g_ * u_, p["w_down"].to(x.dtype))
-    out = torch.zeros((t, d), dtype=y.dtype, device=x.device)
+    gather_idx, filled, wslot = (a[e0 : e0 + el] for a in (gather_idx, filled, wslot))
+    xe = xf[gather_idx] * filled[..., None].to(xf.dtype)  # (E,C,D)
+    g_ = act(torch.einsum("ecd,edf->ecf", xe, w_gate.to(xf.dtype)))
+    u_ = torch.einsum("ecd,edf->ecf", xe, w_up.to(xf.dtype))
+    y = torch.einsum("ecf,efd->ecd", g_ * u_, w_down.to(xf.dtype))
+    out = torch.zeros((t, d), dtype=y.dtype, device=xf.device)
     out.index_add_(
-        0, gather_idx.reshape(-1), (y * wslot[..., None].to(y.dtype)).reshape(e * cap, d)
+        0, gather_idx.reshape(-1), (y * wslot[..., None].to(y.dtype)).reshape(el * cap, d)
     )
-    return shard(out.reshape(b, s, d), "batch", "seq", "embed").to(x.dtype)
+    return out
 
 
 # ------------------------------------------------------------------ Mamba2 SSD

@@ -33,7 +33,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve
 from repro_torch.models import layers as L
-from repro_torch.models.sharding import shard
+from repro_torch.models.sharding import gather_fsdp, on_mesh, shard, shard_index
 
 
 # ------------------------------------------------------------------ init
@@ -142,18 +142,28 @@ def _layers(blocks) -> list:
     return [L.tree_map(lambda t: t[i], split) for i in range(_n_layers(blocks))]
 
 
+def _gathered(tree):
+    """A layer's params as its ops use them (:func:`gather_fsdp` on each
+    leaf: the identity without a mesh)."""
+    return L.tree_map(gather_fsdp, tree)
+
+
 # ------------------------------------------------------------------ blocks
-def _dense_block(cfg: ModelConfig, p, x, positions, layer_idx: int, enc_out=None):
+def _dense_block(cfg: ModelConfig, p, x, positions, layer_idx: int, enc_out=None,
+                 train=False):
     """One transformer block (train/prefill). Handles gemma2 alternation:
-    even layers local, odd layers global."""
+    even layers local, odd layers global. ``train`` (the caller's
+    ``remat``, as in the reference) turns off flash attention's K/V pin."""
     window = None
     if cfg.window is not None:
         window = cfg.window if layer_idx % 2 == 0 else 1 << 30
     h = L.rmsnorm(x, p["ln_attn"], cfg.norm_eps)
     if cfg.family == "mla":
-        a, _ = L.mla_attention(cfg, p["attn"], h, positions)
+        a, _ = L.mla_attention(cfg, p["attn"], h, positions, pin_kv=not train)
     else:
-        a = L.attention(cfg, p["attn"], h, positions, causal=True, window=window)
+        a = L.attention(
+            cfg, p["attn"], h, positions, causal=True, window=window, pin_kv=not train
+        )
     if cfg.post_norms:
         a = L.rmsnorm(a, p["ln_attn_post"], cfg.norm_eps)
     x = x + a
@@ -177,8 +187,42 @@ def _dense_block(cfg: ModelConfig, p, x, positions, layer_idx: int, enc_out=None
 
 
 # ------------------------------------------------------------------ forward
+def _lookup(table, ids):
+    """Rows ``ids`` of the embedding table. A plain table is indexed. A
+    DTensor table is looked up shard-map style (``local_map``), as a
+    vocab-parallel embedding: each device reads the ids that fall in its
+    rows of the table and zeros the rest, and the result is a partial sum
+    over the mesh dims that split the vocab (reduced by the caller's
+    ``shard``). DTensor's own rules for indexing a sharded table, and for
+    its backward, differ between torch releases; these are plain local
+    ops."""
+    if not hasattr(table, "placements"):
+        return table[ids]
+    from torch.distributed.tensor import Partial, Replicate
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = table.device_mesh
+    vocab = [i for i, pl in enumerate(table.placements) if pl.is_shard(0)]
+    tpl = [pl if i in vocab else Replicate() for i, pl in enumerate(table.placements)]
+    ids_pl = ids.placements if hasattr(ids, "placements") else [Replicate()] * mesh.ndim
+    ipl = [Replicate() if i in vocab else pl for i, pl in enumerate(ids_pl)]
+    opl = [Partial() if i in vocab else pl for i, pl in enumerate(ipl)]
+    # each device's table grad comes from its own ids: a partial sum over
+    # the mesh dims that split the ids
+    gpl = [Partial() if pl.is_shard() else t for pl, t in zip(ipl, tpl)]
+
+    def local(tab, idx):
+        rel = idx.long() - shard_index(mesh, vocab) * tab.shape[0]
+        hit = (rel >= 0) & (rel < tab.shape[0])
+        return tab[rel.clamp(0, tab.shape[0] - 1)] * hit[..., None].to(tab.dtype)
+
+    return local_map(local, out_placements=opl, in_placements=(tpl, ipl),
+                     in_grad_placements=(gpl, ipl), device_mesh=mesh,
+                     redistribute_inputs=True)(table, ids)
+
+
 def _embed_tokens(cfg, params, tokens):
-    x = params["embed"][tokens].to(L.cdtype(cfg))
+    x = _lookup(gather_fsdp(params["embed"]), tokens).to(L.cdtype(cfg))
     if cfg.name.startswith("gemma2"):
         x = x * L.scalar(math.sqrt(cfg.d_model), x)
     return shard(x, "batch", "seq", "embed")
@@ -187,17 +231,24 @@ def _embed_tokens(cfg, params, tokens):
 def _logits(cfg, params, x):
     x = L.rmsnorm(x, params["final_norm"], cfg.norm_eps)
     w = (
-        params["embed"].T if cfg.tie_embeddings else params["unembed"]
+        gather_fsdp(params["embed"]).T if cfg.tie_embeddings
+        else gather_fsdp(params["unembed"])
     ).to(x.dtype)
     logits = x @ w
     logits = L.softcap(logits.float(), cfg.final_softcap)
     return shard(logits, "batch", "seq", "vocab")
 
 
+def _resid(t):
+    """A block's output placed as the residual stream, by batch (the
+    identity without a mesh)."""
+    return shard(t, "batch", "seq", "embed") if t.ndim == 3 else shard(t, "batch", "embed")
+
+
 def _mamba_block(cfg, bp, x):
     h = L.rmsnorm(x, bp["ln"], cfg.norm_eps)
     y, _ = L.mamba_forward(cfg, bp["mamba"], h)
-    return x + y
+    return x + _resid(y)
 
 
 def _scan_blocks(cfg, blocks, x, positions, enc_out=None, remat=True):
@@ -206,13 +257,14 @@ def _scan_blocks(cfg, blocks, x, positions, enc_out=None, remat=True):
 
 
 def _run_layers(cfg, layers, is_mamba, x, positions, enc_out=None, remat=True):
+    train = remat
     remat = remat and torch.is_grad_enabled()
     for i, bp in enumerate(layers):
         if is_mamba:
-            body = lambda x, bp=bp: _mamba_block(cfg, bp, x)  # noqa: E731
+            body = lambda x, bp=bp: _mamba_block(cfg, _gathered(bp), x)  # noqa: E731
         else:
             body = lambda x, bp=bp, i=i: _dense_block(  # noqa: E731
-                cfg, bp, x, positions, i, enc_out=enc_out
+                cfg, _gathered(bp), x, positions, i, enc_out=enc_out, train=train
             )
         x = checkpoint(body, x, use_reentrant=False) if remat else body(x)
     return x
@@ -222,6 +274,7 @@ def _positions(n: int, like: torch.Tensor) -> torch.Tensor:
     return torch.arange(n, device=like.device)[None, :]
 
 
+@on_mesh()
 def forward(cfg: ModelConfig, params, batch, remat=True):
     """Forward → logits. batch: dict(tokens, [frontend])."""
     if cfg.family == "encdec":
@@ -259,13 +312,14 @@ def _hybrid_forward(cfg, params, x, positions, remat=True):
     layers = _layers(params["blocks"])
     for i in range(n_groups):
         x = _run_layers(cfg, layers[i * per : (i + 1) * per], True, x, positions, remat=remat)
-        x = _dense_block(cfg, params["shared_attn"], x, positions, 1)
+        x = _dense_block(cfg, _gathered(params["shared_attn"]), x, positions, 1)
     rem = cfg.n_layers - n_groups * per
     if rem:
         x = _run_layers(cfg, layers[-rem:], True, x, positions, remat=remat)
     return x
 
 
+@on_mesh()
 def loss_fn(cfg: ModelConfig, params, batch, remat=True):
     """Mean next-token negative log-likelihood over the float32 logits.
 
@@ -276,12 +330,49 @@ def loss_fn(cfg: ModelConfig, params, batch, remat=True):
     labels = batch["labels"].long()
     if cfg.frontend == "vlm" and "frontend" in batch:
         logits = logits[:, batch["frontend"].shape[1] :]
-    lse = torch.logsumexp(logits, dim=-1)
     # a masked label reads position 0; its term is multiplied by 0 below
-    ll = torch.gather(logits, -1, labels.clamp(min=0)[..., None])[..., 0]
+    if hasattr(logits, "placements"):
+        lse, ll = _vocab_parallel_terms(logits, labels.clamp(min=0))
+    else:
+        lse = torch.logsumexp(logits, dim=-1)
+        ll = torch.gather(logits, -1, labels.clamp(min=0)[..., None])[..., 0]
     mask = (labels >= 0).float()
     nll = (lse - ll) * mask
     return torch.sum(nll) / torch.clamp(torch.sum(mask), min=1.0)
+
+
+def _vocab_parallel_terms(logits, labels):
+    """(log-sum-exp, the label's logit) of vocab-sharded DTensor logits,
+    without gathering the vocab: the row max (detached: the log-sum-exp's
+    value and grad do not depend on it) and the sum of exponentials are
+    reductions DTensor finishes with a small all-reduce, and the label's
+    logit is read shard-map style (``local_map``): each device reads the
+    labels that fall in its vocab rows, a partial sum over the vocab's
+    mesh dims. ``torch.gather`` on a sharded dim would make its backward
+    allocate the whole (batch, seq, vocab) grad on every device."""
+    from torch.distributed.tensor import Partial, Replicate
+    from torch.distributed.tensor.experimental import local_map
+
+    m = shard(logits.detach().amax(dim=-1, keepdim=True), "batch", "seq", None)
+    total = shard(torch.sum(torch.exp(logits - m), dim=-1, keepdim=True), "batch", "seq", None)
+    lse = (m + torch.log(total))[..., 0]
+    mesh = logits.device_mesh
+    lpl = list(logits.placements)
+    vocab = [i for i, pl in enumerate(lpl) if pl.is_shard(logits.ndim - 1)]
+    ids_pl = labels.placements if hasattr(labels, "placements") else [Replicate()] * mesh.ndim
+    ipl = [Replicate() if i in vocab else pl for i, pl in enumerate(ids_pl)]
+    opl = [Partial() if i in vocab else pl for i, pl in enumerate(ipl)]
+
+    def local(lg, idx):
+        rel = idx - shard_index(mesh, vocab) * lg.shape[-1]
+        hit = (rel >= 0) & (rel < lg.shape[-1])
+        got = torch.gather(lg, -1, rel.clamp(0, lg.shape[-1] - 1)[..., None])[..., 0]
+        return got * hit.to(got.dtype)
+
+    ll = local_map(local, out_placements=opl, in_placements=(lpl, ipl),
+                   in_grad_placements=(lpl, ipl), device_mesh=mesh,
+                   redistribute_inputs=True)(logits, labels)
+    return lse, shard(ll, "batch", "seq")
 
 
 # ------------------------------------------------------------------ serving
@@ -328,7 +419,7 @@ def encdec_prepare_cross(cfg: ModelConfig, params, enc_out):
     b, s, _ = enc_out.shape
     ks, vs = [], []
     for layer in _layers(params["dec_blocks"]):
-        cross = layer["cross"]
+        cross = _gathered(layer["cross"])
         ks.append((enc_out @ cross["wk"].to(enc_out.dtype)).reshape(b, s, cfg.n_kv_heads, hd))
         vs.append((enc_out @ cross["wv"].to(enc_out.dtype)).reshape(b, s, cfg.n_kv_heads, hd))
     return torch.stack(ks), torch.stack(vs)
@@ -337,10 +428,12 @@ def encdec_prepare_cross(cfg: ModelConfig, params, enc_out):
 def _mamba_decode_layers(cfg, blocks, x, cache, lo: int):
     """Mamba decode over the stacked ``blocks``, on cache layers from ``lo``."""
     for i, bp in enumerate(_layers(blocks)):
+        bp = _gathered(bp)
         h = L.rmsnorm(x, bp["ln"], cfg.norm_eps)
         y, st, cv = L.mamba_decode(
             cfg, bp["mamba"], h, cache["state"][lo + i], cache["conv"][lo + i]
         )
+        y = _resid(y)
         if cv.dtype != cache["conv"].dtype:
             # the reference's scan carries the state in the promoted dtype
             cache["conv"] = cache["conv"].to(cv.dtype)
@@ -350,19 +443,21 @@ def _mamba_decode_layers(cfg, blocks, x, cache, lo: int):
     return x
 
 
+@on_mesh()
 def decode_step(cfg: ModelConfig, params, cache, token, pos: int):
     """One decode step. token: (B,) int → (logits (B,V), cache).
 
     The cache's tensors are written at ``pos`` in place; encdec reads its
     cross K/V from the cache (``encdec_prepare_cross``).
     """
-    x = params["embed"][token].to(L.cdtype(cfg))
+    x = _lookup(gather_fsdp(params["embed"]), token).to(L.cdtype(cfg))
     if cfg.name.startswith("gemma2"):
         x = x * L.scalar(math.sqrt(cfg.d_model), x)
     x = shard(x, "batch", "embed")
 
     if cfg.family in ("dense", "moe"):
         for i, bp in enumerate(_layers(params["blocks"])):
+            bp = _gathered(bp)
             window = None
             if cfg.window is not None:
                 window = cfg.window if i % 2 == 0 else 1 << 30
@@ -370,6 +465,7 @@ def decode_step(cfg: ModelConfig, params, cache, token, pos: int):
             a, _, _ = L.attention_decode(
                 cfg, bp["attn"], h, cache["k"][i], cache["v"][i], pos, window=window
             )
+            a = _resid(a)
             if cfg.post_norms:
                 a = L.rmsnorm(a, bp["ln_attn_post"], cfg.norm_eps)
             x2 = x + a
@@ -385,6 +481,7 @@ def decode_step(cfg: ModelConfig, params, cache, token, pos: int):
             x = x2 + m
     elif cfg.family == "mla":
         for i, bp in enumerate(_layers(params["blocks"])):
+            bp = _gathered(bp)
             h = L.rmsnorm(x, bp["ln_attn"], cfg.norm_eps)
             a, _ = L.mla_attention(
                 cfg, bp["attn"], h[:, None, :], None,
@@ -400,7 +497,7 @@ def decode_step(cfg: ModelConfig, params, cache, token, pos: int):
         for g in range(cfg.n_layers // per):
             sub = L.tree_map(lambda a: a[g * per : (g + 1) * per], params["blocks"])
             x = _mamba_decode_layers(cfg, sub, x, cache, g * per)
-            bp = params["shared_attn"]
+            bp = _gathered(params["shared_attn"])
             h = L.rmsnorm(x, bp["ln_attn"], cfg.norm_eps)
             a, _, _ = L.attention_decode(
                 cfg, bp["attn"], h, cache["k"][g], cache["v"][g], pos
@@ -411,6 +508,7 @@ def decode_step(cfg: ModelConfig, params, cache, token, pos: int):
     elif cfg.family == "encdec":
         hd = cfg.hd
         for i, bp in enumerate(_layers(params["dec_blocks"])):
+            bp = _gathered(bp)
             h = L.rmsnorm(x, bp["ln_attn"], cfg.norm_eps)
             a, _, _ = L.attention_decode(
                 cfg, bp["attn"], h, cache["k"][i], cache["v"][i], pos
@@ -433,8 +531,9 @@ def decode_step(cfg: ModelConfig, params, cache, token, pos: int):
 
 def prefill(cfg: ModelConfig, params, batch):
     """Prefill: full forward returning last-position logits (cache writes are
-    exercised by decode_step)."""
-    return forward(cfg, params, batch)[:, -1]
+    exercised by decode_step). No remat, so K/V stay pinned on a mesh, as
+    in the reference."""
+    return forward(cfg, params, batch, remat=False)[:, -1]
 
 
 # ------------------------------------------------------------------ module

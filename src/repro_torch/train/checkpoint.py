@@ -26,8 +26,11 @@ import zipfile
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor
 
 from repro_torch.device import resolve
+from repro_torch.models.sharding import place
 from repro_torch.train import minipack
 
 IO_CHUNK = 1 << 26  # bytes per write / read call
@@ -74,6 +77,8 @@ def _host(t, staging: _Staging) -> tuple[np.ndarray, str | None]:
     if not isinstance(t, torch.Tensor):
         return np.ascontiguousarray(np.asarray(t)), None
     t = t.detach()
+    if isinstance(t, DTensor):
+        t = t.full_tensor()
     if t.is_cuda:
         host = staging.take(t.numel() * t.element_size()).view(t.dtype).view(t.shape)
         t = host.copy_(t)
@@ -95,32 +100,46 @@ def _write_npy(f, a: np.ndarray, descr: str | None):
 
 def save(ckpt_dir: str, step: int, params, opt_state, extra: dict | None = None,
          keep: int = 3):
-    """Atomically write a checkpoint; prune to the newest ``keep``."""
-    os.makedirs(ckpt_dir, exist_ok=True)
-    tmp = os.path.join(ckpt_dir, f".tmp_step_{step}")
-    final = os.path.join(ckpt_dir, f"step_{step}")
-    if os.path.exists(tmp):
-        shutil.rmtree(tmp)
-    os.makedirs(tmp)
+    """Atomically write a checkpoint; prune to the newest ``keep``.
+
+    A DTensor leaf is written whole: every rank gathers it
+    (``full_tensor``), in the same leaf order, and rank 0 writes; the
+    other ranks wait for the write to be published before they return.
+    """
+    multi = dist.is_initialized() and dist.get_world_size() > 1
+    writer = not multi or dist.get_rank() == 0
     flat = _flatten(dict(params=params, opt=opt_state))
-    staging = _Staging()
-    with zipfile.ZipFile(os.path.join(tmp, "arrays.npz"), mode="w",
-                         compression=zipfile.ZIP_STORED, allowZip64=True) as zf:
-        for key, leaf in flat.items():
-            a, descr = _host(leaf, staging)
-            with zf.open(key + ".npy", "w", force_zip64=True) as f:
-                _write_npy(f, a, descr)
-            del a
-    manifest = dict(step=step, keys=list(flat), extra=extra or {})
-    with open(os.path.join(tmp, "manifest.msgpack"), "wb") as f:
-        f.write(minipack.packb(manifest))
-    if os.path.exists(final):
-        shutil.rmtree(final)
-    os.rename(tmp, final)  # atomic publish
-    with open(os.path.join(ckpt_dir, ".latest.tmp"), "w") as f:
-        f.write(str(step))
-    os.replace(os.path.join(ckpt_dir, ".latest.tmp"), os.path.join(ckpt_dir, "latest"))
-    _prune(ckpt_dir, keep)
+    if writer:
+        os.makedirs(ckpt_dir, exist_ok=True)
+        tmp = os.path.join(ckpt_dir, f".tmp_step_{step}")
+        final = os.path.join(ckpt_dir, f"step_{step}")
+        if os.path.exists(tmp):
+            shutil.rmtree(tmp)
+        os.makedirs(tmp)
+        staging = _Staging()
+        with zipfile.ZipFile(os.path.join(tmp, "arrays.npz"), mode="w",
+                             compression=zipfile.ZIP_STORED, allowZip64=True) as zf:
+            for key, leaf in flat.items():
+                a, descr = _host(leaf, staging)
+                with zf.open(key + ".npy", "w", force_zip64=True) as f:
+                    _write_npy(f, a, descr)
+                del a
+        manifest = dict(step=step, keys=list(flat), extra=extra or {})
+        with open(os.path.join(tmp, "manifest.msgpack"), "wb") as f:
+            f.write(minipack.packb(manifest))
+        if os.path.exists(final):
+            shutil.rmtree(final)
+        os.rename(tmp, final)  # atomic publish
+        with open(os.path.join(ckpt_dir, ".latest.tmp"), "w") as f:
+            f.write(str(step))
+        os.replace(os.path.join(ckpt_dir, ".latest.tmp"), os.path.join(ckpt_dir, "latest"))
+        _prune(ckpt_dir, keep)
+    else:
+        for leaf in flat.values():
+            if isinstance(leaf, DTensor):
+                leaf.full_tensor()  # this rank's part of the gather
+    if multi:
+        dist.barrier()
 
 
 def _prune(ckpt_dir: str, keep: int):
@@ -173,13 +192,14 @@ def _read_member(zf: zipfile.ZipFile, name: str, staging: _Staging | None
 
 
 def restore(ckpt_dir: str, step: int | None = None, shardings=None, device="cuda"):
-    """Load (params, opt_state, extra), each leaf moved to ``device`` as it
-    is read. Placing leaves on a device mesh (the reference's
-    ``shardings``) is not ported yet (ROADMAP queue 1, item 14)."""
-    if shardings is not None:
-        raise NotImplementedError(
-            "restore(shardings=...) needs the port's device mesh (ROADMAP queue 1, item 14)"
-        )
+    """Load (params, opt_state, extra), each leaf placed as it is read.
+
+    ``shardings``: optional pair of trees (params, opt state) of ``(mesh,
+    placements)`` per leaf; such a leaf is placed on that (possibly
+    different-size) mesh with ``distribute_tensor``, the elastic restart's
+    reshard, or on a mesh of one device moved to that device. Every rank
+    reads the files; each keeps its own shard. Leaves without an entry go
+    to ``device``."""
     device = resolve(device)
     if step is None:
         step = latest_step(ckpt_dir)
@@ -189,12 +209,19 @@ def restore(ckpt_dir: str, step: int | None = None, shardings=None, device="cuda
     with open(os.path.join(d, "manifest.msgpack"), "rb") as f:
         manifest = minipack.unpackb(f.read())
     flat = {}
+    flat_s = {} if shardings is None else _flatten(dict(params=shardings[0], opt=shardings[1]))
     staging = _Staging() if device.type == "cuda" else None
     with zipfile.ZipFile(os.path.join(d, "arrays.npz")) as zf:
         for k in manifest["keys"]:
             a, bf16 = _read_member(zf, k + ".npy", staging)
             t = torch.from_numpy(a)
-            flat[k] = (t.view(torch.bfloat16) if bf16 else t).to(device)
+            t = t.view(torch.bfloat16) if bf16 else t
+            if k in flat_s:
+                mesh, placements = flat_s[k]
+                # from the staging buffer to the mesh's device, then placed
+                flat[k] = place(t.to(torch.device(mesh.device_type)), mesh, placements)
+            else:
+                flat[k] = t.to(device)
             del a, t
     tree = _unflatten(flat)
     return tree["params"], tree["opt"], manifest["extra"]

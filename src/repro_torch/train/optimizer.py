@@ -70,13 +70,14 @@ def schedule(cfg: OptConfig, step):
 
 
 def init_opt_state(cfg: OptConfig, params):
-    """Zero moments beside each param, on its device; ``step`` 0 (int32)."""
+    """Zero moments beside each param, on its device and, for a DTensor
+    param, in its placements; ``step`` 0 (int32)."""
     dt = torch.bfloat16 if cfg.moment_dtype == "bfloat16" else torch.float32
 
     def zeros(tree):
         if isinstance(tree, dict):
             return {k: zeros(v) for k, v in tree.items()}
-        return torch.zeros(tree.shape, dtype=dt, device=tree.device)
+        return torch.zeros_like(tree, dtype=dt)  # a DTensor keeps its placements
 
     device = flat_leaves(params)[0].device
     return dict(

@@ -13,6 +13,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import model as M
+from repro_torch.models.sharding import on_mesh
 from repro_torch.train.optimizer import OptConfig, apply_updates, flat_leaves, unflatten_like
 
 
@@ -28,6 +29,7 @@ def make_train_step(cfg: ModelConfig, opt_cfg: OptConfig, microbatches: int = 1)
         loss = M.loss_fn(cfg, params, batch)
         return loss.detach(), torch.autograd.grad(loss, leaves)
 
+    @on_mesh()
     def train_step(params, opt_state, batch):
         leaves = flat_leaves(params)
         for p in leaves:

@@ -87,8 +87,17 @@ def test_sharding_rules_equal_the_reference():
             assert t.physical(logical, shape) == tuple(r.physical(logical, shape))
     x = torch.ones(2, 3)
     assert S.shard(x, "batch", "embed") is x
-    with pytest.raises(NotImplementedError):
-        S.ShardingRules(mesh=Mesh()).constraint(x, "batch", "embed")
+    # on a DeviceMesh (rank 0 of a fake world of 8) constraint places x:
+    # batch over data (pod absent), embed replicated
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    from torch_mesh import fake_world
+
+    with fake_world(8):
+        mesh = init_device_mesh("cpu", (2, 4), mesh_dim_names=("data", "model"))
+        y = S.ShardingRules(mesh=mesh).constraint(x, "batch", "embed")
+        assert isinstance(y, DTensor) and y.placements == (Shard(0), Replicate())
+        assert y.to_local().shape == (1, 3) and y.shape == x.shape
 
 
 # ------------------------------------------------------------------ params

@@ -51,7 +51,9 @@ def test_port_imports_neither_jax_nor_repro():
             "repro_torch.train.optimizer", "repro_torch.train.train_step",
             "repro_torch.train.checkpoint", "repro_torch.train.compress",
             "repro_torch.train.minipack", "repro_torch.data.pipeline",
-            "repro_torch.launch.train"} <= set(MODULES)
+            "repro_torch.launch.train", "repro_torch.launch.mesh",
+            "repro_torch.launch.shapes", "repro_torch.launch.dryrun",
+            "repro_torch.launch.roofline"} <= set(MODULES)
 
 
 FORBIDDEN = re.compile(
@@ -99,6 +101,8 @@ def _entry_points():
     from repro_torch.models.convert import params_from_numpy
     from repro_torch.data.pipeline import DataPipeline
     from repro_torch.launch.train import main as train_main
+    from repro_torch.launch.dryrun import main as dryrun_main
+    from repro_torch.launch.mesh import make_debug_mesh, make_production_mesh
     from repro_torch.train.checkpoint import restore
 
     lm = reduced(get_config("qwen2.5-3b"), n_layers=1, d_model=64, d_ff=64, vocab=32)
@@ -132,6 +136,10 @@ def _entry_points():
         "DataPipeline.get_batch": lambda tmp: DataPipeline(vocab=32, batch=1, seq=4).get_batch(0),
         "checkpoint.restore": lambda tmp: restore(str(tmp / "ckpt")),
         "launch.train.main": lambda tmp: train_main(["--steps", "1", "--ckpt", str(tmp / "c")]),
+        "launch.dryrun.main": lambda tmp: dryrun_main(["--arch", "mamba2-130m",
+                                                       "--shape", "decode_32k"]),
+        "launch.mesh.make_debug_mesh": lambda tmp: make_debug_mesh(),
+        "launch.mesh.make_production_mesh": lambda tmp: make_production_mesh(),
     }
 
 

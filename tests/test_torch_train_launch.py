@@ -20,6 +20,7 @@ from repro_torch.launch import train as TL  # noqa: E402
 from repro_torch.train import checkpoint as C  # noqa: E402
 from repro_torch.train.optimizer import flat_leaves  # noqa: E402
 from torch_lm import one_torch_thread  # noqa: E402,F401
+from torch_mesh import fake_world  # noqa: E402
 
 SMALL = ["--arch", "qwen2.5-3b", "--batch", "2", "--seq", "16"]
 
@@ -52,9 +53,26 @@ def test_step_timeout_exits_75_with_checkpoint(tmp_path):
 
 
 @pytest.mark.parametrize("flag", ["--production-mesh", "--multipod"])
-def test_mesh_flags_raise(tmp_path, flag):
-    with pytest.raises(NotImplementedError, match="item 14"):
-        port_main(tmp_path, "--steps", "1", flag)
+def test_mesh_flags_raise(tmp_path, flag, capsys, monkeypatch):
+    """``--production-mesh`` builds the (32, 8) mesh and, with
+    ``--multipod``, the (2, 32, 8) one, over a process group of 256 / 512
+    ranks (a fake one here; the launcher stops once the mesh is up). Any
+    other world size raises; the launcher alone is a world of one."""
+    flags = ["--production-mesh"] + ([flag] if flag == "--multipod" else [])
+    world = 512 if flag == "--multipod" else 256
+    with pytest.raises(ValueError, match=f"needs {world} ranks; the process group has 1"):
+        port_main(tmp_path, "--steps", "1", *flags)
+    for other in (world // 2, world):
+        def stop(*a, **kw):
+            raise KeyboardInterrupt
+
+        monkeypatch.setattr(TL, "DataPipeline", stop)
+        with fake_world(other), pytest.raises(
+            ValueError if other != world else KeyboardInterrupt
+        ):
+            port_main(tmp_path, "--steps", "1", *flags)
+    want = {"data": 32, "model": 8} if world == 256 else {"pod": 2, "data": 32, "model": 8}
+    assert f"mesh: {want}" in capsys.readouterr().out
 
 
 def test_no_reduced_selects_published_widths(tmp_path, monkeypatch):
