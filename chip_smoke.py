@@ -94,9 +94,9 @@ Phases, each fatal on failure:
    bloom-filtered get, each against a numpy oracle, the bloom's false
    negatives counted: 0), fig13 (D in {16, 32, 64} at R = 8), table1,
    fig14-16 (RemixDB, whose reads go through both kernels, against the
-   leveled and tiered stores at 2x the reference's keys, memtable and
+   leveled and tiered stores at the reference's keys, memtable and
    table cap; every store held to the oracle after each load) and fig17
-   (YCSB A-F at 2x the keys, 3,000 ops each; the stores held to the
+   (YCSB A-F at the reference's keys, 3,000 ops each; the stores held to the
    oracle after the load and after F, the baselines' scans after F to
    their own ``scan`` per start). After each load, outside the counted
    runs, both kernels against their plain versions bit for bit on the
@@ -162,6 +162,25 @@ Phases, each fatal on failure:
    and held to the trained state bit for bit, then ``--resume``. Both
    kernels' launch counts over (a) and (c) are printed (no kernel of
    ``csrc/`` is on this path).
+12. drivers — the system's own drivers through the port
+   (``src/repro_torch/bench/``, ``examples/``, ``tools/``): the eight
+   system benchmarks at the reference's full sizes (cache: 8 tables x
+   2^17 entries; kernels and batch: 8 x 2^16; cursor: 6 x 2^14; engine: 2
+   shards of 8 x 2^15; rebuild: 8 + 1 tables of 16,384; scrub: 40,000
+   keys; cluster: 3 shards x 49,152 keys, 5 s of zipfian traffic on each
+   side of a live split), every bar each of them asserts held, each row
+   printed beside the card (the kernels benchmark's device/legacy ratio
+   is printed beside the reference's TPU-era 5x bar, which is not held);
+   both kernels held bit for bit on the kernels benchmark's resident view
+   at its 256-key probe and 64 x 16 scans, and timed there; the four
+   examples (quickstart's expectations asserted; kvstore_serving at
+   200,000 keys; the serving example's outputs equal with and without the
+   prefix cache; train_lm for 150 of its 300 steps, with the step-100
+   checkpoint, then resumed from the last for 20 more); obstool's ``show``,
+   ``--prom`` and ``diff`` on the engine benchmark's snapshot and across a
+   store's reads, ``health`` on that store (exit 0) and ``health --scrub``
+   on a copy with a flipped table byte (non-zero). Both kernels' launches are counted per
+   driver; kernels and batch must launch both.
 
 The last lines are one JSON object listing the kernels, the card's name
 and power limit from nvidia-smi, and ``{"ok": true, "device": ...}``.
@@ -236,15 +255,15 @@ FLEET_TAIL = 4096  # stage 5's put_batch into the replicated shard
 # phase 8: the paper's figures (src/repro_torch/bench/), with the
 # reference benchmarks' shapes and mix. fig11-13 tables of 2^18 keys, 16x
 # benchmarks/fig11_queries.py's 16,384 (the host builds of the tables took
-# phase 8 to 391 s at 2^20 and to 344 s at 2^19 on a slower host); fig14-17 keys, memtable and table cap x 2
-# (fig14-16: 240,000 keys, memtable and table_cap 16,384 against the
-# store defaults 2^18 and 65,536; fig17: 120,000 keys, OPS 3,000). At x 4
-# the whole script, phase 10 included, ran 744 s on an H100 and 986 s on
-# a slower host (phase 8 320 s of it), against the 1,200 s it may take;
-# at x 2 it ran 665 s
+# phase 8 to 391 s at 2^20 and to 344 s at 2^19 on a slower host); fig14-17
+# at the reference's keys, memtable and table cap (fig14-16: 120,000 keys,
+# memtable and table_cap 8,192; fig17: 60,000 keys, OPS 3,000). At x 4 the
+# whole script, phase 10 included, ran 744 s on an H100 and 986 s on a
+# slower host (phase 8 320 s of it), against the 1,200 s it may take; at
+# x 2 it ran 665 s, and 849 s with phases 11-12 (fig14-17: 116.5 s)
 PAPER_N_PER_TABLE = 1 << 18
 PAPER_TIMED = ("fig14 120B", "fig17 load")  # one store per G of phase 8's partitions
-PAPER_SCALE = 2
+PAPER_SCALE = 1
 PAPER_SEED = 1  # build_demo_state's draws for the sharded get
 # phase 9: LLM serving at qwen2.5-3b's published widths
 # (src/repro/configs/qwen2_5_3b.py) with random weights from a seed;
@@ -293,6 +312,18 @@ DEV = "cuda"
 DRYRUN_CELLS = (("qwen2.5-3b", "train_4k"), ("mamba2-130m", "decode_32k"),
                 ("remixdb", "service"))
 DRYRUN_TIMEOUT = 300
+# phase 12: the system's own drivers through the port, every benchmark at
+# its reference size (not --tiny). kernels and batch send the device path
+# batches of their own, so both kernels must launch there
+DRIVER_BENCHES = ("cache", "kernels", "batch", "cursor", "engine", "rebuild", "scrub",
+                  "cluster")
+DRIVER_REQUIRE = ("kernels", "batch")
+# examples/train_lm.py for 150 steps, not its 300 (checkpoints at 100 and
+# the end; 300 + 20 steps took 69 s and the whole script 954.1 s on a slow
+# host), then a second call that resumes from the last checkpoint and
+# trains 20 steps more
+TRAIN_LM_STEPS, TRAIN_LM_MORE = 150, 20
+OBS_KEYS = 20_000  # the store obstool's health reads (flushed, one table rotted)
 HBM_BPS = 3.35e12  # H100 SXM device memory, bytes/s
 BF16_FLOPS = 989e12  # H100 SXM dense bfloat16 tensor-core peak, FLOP/s
 INT32_LANES_PER_SM = 64  # Hopper SM: 4 partitions x 16 INT32 lanes (H100 whitepaper)
@@ -2587,12 +2618,13 @@ def _sharded_rank(rank, world, init, out, cfg=None):
         dist.destroy_process_group()
 
 
-def _paper_observer(card, shapes, err):
-    """The figure benchmarks' ``observe``: after each load, both kernels on
-    the RemixDB's resident views at the batches the figure sends them, bit
-    for bit against the plain versions (``hold_views``; timed as well
-    after the loads in ``PAPER_TIMED``: ``view_kernels``), with those
-    launches taken back off the counts (they are not the path's); where a baseline's scans go through its memtable overlay,
+def _paper_observer(card, shapes, err, timed=PAPER_TIMED, log_tag="paper"):
+    """The figure benchmarks' ``observe`` (and ``kernels_bench``'s): after
+    each load, both kernels on the RemixDB's resident views at the batches
+    the benchmark sends them, bit for bit against the plain versions
+    (``hold_views``; timed as well after the loads in ``timed``:
+    ``view_kernels``), with those launches taken back off the counts (they
+    are not the path's); where a baseline's scans go through its memtable overlay,
     a 64-start scan_batch timed beside one merging scan per start, the
     reference's algorithm."""
     from repro_torch.bench.common import sync
@@ -2604,10 +2636,10 @@ def _paper_observer(card, shapes, err):
         mgr, driven = _view_batches(stores["remixdb"], [
             (label, keys, 1 if n is None else n + max(8, n // 2))  # the store's window
             for label, keys, n in batches])
-        if tag in PAPER_TIMED:
-            got, e = view_kernels(mgr, driven, card, tier=f"{tag} RemixDB", tag="paper")
+        if tag in timed:
+            got, e = view_kernels(mgr, driven, card, tier=f"{tag} RemixDB", tag=log_tag)
         else:
-            got, e = {k: [] for k in shapes}, hold_views(mgr, driven, f"{tag} RemixDB", "paper")
+            got, e = {k: [] for k in shapes}, hold_views(mgr, driven, f"{tag} RemixDB", log_tag)
         del mgr, driven
         AS.anchor_search.launches = before["anchor_search"]
         SD.selector_decode.launches = before["selector_decode"]
@@ -2616,8 +2648,8 @@ def _paper_observer(card, shapes, err):
             err[k] = max(err[k], e[k])
         starts = [k for label, k, n in batches if label.startswith("scan50 64")]
         for name in ("leveled", "tiered"):
-            s = stores[name]
-            if not (starts and len(s.mem)):
+            s = stores.get(name)
+            if s is None or not (starts and len(s.mem)):
                 continue
             ts = []
             for _ in range(3):
@@ -3479,6 +3511,206 @@ def phase_launch(card, measured):
     return launches
 
 
+# ---------------------------------------------------------------- phase 12
+def _driver_benches(out: str, observe) -> dict:
+    """Each benchmark's ``run`` at its reference size on ``DEV``, its JSON
+    record (where it writes one) under ``out``."""
+    from repro_torch.bench import (batch_bench, cache_bench, cluster_bench, cursor_bench,
+                                   engine_bench, kernels_bench, rebuild_bench, scrub_bench)
+
+    def at(name):
+        return os.path.join(out, f"BENCH_{name}.json")
+
+    return dict(
+        cache=lambda c: cache_bench.run(c, device=DEV),
+        kernels=lambda c: kernels_bench.run(c, json_path=at("kernels"), device=DEV,
+                                            observe=observe),
+        batch=lambda c: batch_bench.run(c, json_path=at("queries"), device=DEV),
+        cursor=lambda c: cursor_bench.run(c, json_path=at("cursor"), device=DEV),
+        engine=lambda c: engine_bench.run(c, json_path=at("engine"), device=DEV),
+        rebuild=lambda c: rebuild_bench.run(c, device=DEV),
+        scrub=lambda c: scrub_bench.run(c, device=DEV),
+        cluster=lambda c: cluster_bench.run(c, json_path=at("cluster"), device=DEV),
+    )
+
+
+def _driver_records(records: dict, card: str) -> None:
+    """The numbers behind each JSON record's bars (each benchmark asserts
+    its own), beside the card."""
+    k, b = records["kernels"]["pipeline"], records["batch"]
+    e, cl = records["engine"], records["cluster"]
+    log(f"[drivers] {card}: kernels: device {k['device_get_us_per_key']} / legacy "
+        f"{k['host_get_us_per_key']} us per key at batch {k['batch']}, device/legacy "
+        f"{k['get_speedup']}x (the reference's >= 5x TPU-era bar: reported, not asserted); "
+        f"scans {k['device_scan_us_per_query']} / {k['host_scan_us_per_query']} us per "
+        f"query; {k['hbm_resident_bytes']} resident bytes")
+    log(f"[drivers] {card}: batch: multi-get {b['multiget_speedup_at_256']}x the scalar loop "
+        f"(bar >= 5x), CKB decoder saves {b['ckb_decode_savings']}; device vs legacy "
+        f"{b['device_vs_host']}")
+    log(f"[drivers] {card}: cursor: long-scan {records['cursor']['scans']['long']['speedup']:.3f}x "
+        f"(bar >= 2x), short {records['cursor']['scans']['short']['speedup']:.3f}x")
+    log(f"[drivers] {card}: engine: mixed {e['mixed_speedup_at_256']}x (bar >= 5x), pure get "
+        f"{e['pure_get_ratio']} / scan {e['pure_scan_ratio']} (bar >= 0.5), metrics on/off "
+        f"{e['metrics_overhead_ratio']} (bar >= 0.95), snapshot pin full/empty "
+        f"{e['snapshot_pin_ratio_full_vs_empty']} (bar <= 10); async {e['async_ops_per_s']} "
+        f"ops/s; trace {e['trace']}")
+    log(f"[drivers] {card}: cluster: {cl['ops']} ops, {cl['failed_ops']} failed; p99 "
+        f"{cl['p99_pre_split_ms']} ms before / {cl['p99_post_split_ms']} ms after the split "
+        f"({cl['post_over_pre_p99']}x, bar <= 2x); gate {cl['split']['gate_ms']} ms, shipped "
+        f"{cl['split']['shipped_bytes']} bytes; replica lag {cl['replica']['lag_before_catchup']}"
+        f" -> 0 in {cl['replica']['catchup_ms']} ms")
+
+
+def _run_obstool(argv) -> tuple[int, str]:
+    """``python -m repro_torch.tools.obstool`` on ``argv``, in process:
+    (exit code, what it printed)."""
+    import io
+
+    from repro_torch.tools import obstool
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = obstool.main(argv)
+    return rc, buf.getvalue()
+
+
+def _driver_obstool(root: str, card: str) -> None:
+    """obstool's ``show`` (plain and ``--prom``) and ``diff`` on the engine
+    benchmark's snapshot, ``diff`` across a store's reads, ``health`` on
+    that store (exit 0), ``health --scrub`` on a copy with a flipped table
+    byte (non-zero)."""
+    import shutil
+
+    from repro_torch.db.store import RemixDB, RemixDBConfig
+    from repro_torch.io.faults import flip_bytes
+    from repro_torch.obs.metrics import save_snapshot
+
+    snap = os.path.join(root, "OBS_snapshot.json")
+    with open(snap) as f:
+        n = len(json.load(f)["metrics"])
+    rc, text = _run_obstool(["show", snap])
+    check(rc == 0 and len(text.splitlines()) == n, f"obstool show: rc {rc}, "
+          f"{len(text.splitlines())} lines for {n} samples")
+    rc, prom = _run_obstool(["show", snap, "--prom"])
+    check(rc == 0 and "# TYPE engine_ops counter" in prom, "obstool show --prom")
+    rc, same = _run_obstool(["diff", snap, snap])
+    check(rc == 0 and same.strip() == "# 0 sample(s) changed", f"obstool diff: {same!r}")
+    db_dir = os.path.join(root, "obs-db")
+    db = RemixDB.open(db_dir, RemixDBConfig(device=DEV))
+    try:
+        ks = np.arange(1, OBS_KEYS + 1, dtype=np.uint64) * 8
+        db.put_batch(ks, np.stack([ks.astype(np.uint32), np.ones(OBS_KEYS, np.uint32)], 1))
+        db.flush()
+        save_snapshot(db.metrics(), os.path.join(root, "before.json"))
+        found, _ = db.get_batch(ks[::7])
+        check(bool(found.all()), "obstool store: a written key not found")
+        save_snapshot(db.metrics(), os.path.join(root, "after.json"))
+    finally:
+        db.close()
+    rc, diff = _run_obstool(["diff", os.path.join(root, "before.json"),
+                             os.path.join(root, "after.json")])
+    changed = int(diff.strip().splitlines()[-1].split()[1])
+    check(rc == 0 and changed > 0, f"obstool diff across reads: {diff[-200:]!r}")
+    rc_ok, health = _run_obstool(["health", db_dir, "--device", DEV])
+    check(rc_ok == 0 and "status: ok" in health, f"obstool health: rc {rc_ok}: {health!r}")
+    rot = os.path.join(root, "obs-db-rot")
+    shutil.copytree(db_dir, rot)
+    table = os.path.join(rot, "tables", sorted(os.listdir(os.path.join(rot, "tables")))[0])
+    flip_bytes(table, offset=os.path.getsize(table) // 4, nbytes=1)
+    rc_rot, report = _run_obstool(["health", rot, "--scrub", "--device", DEV])
+    check(rc_rot != 0, f"obstool health --scrub on a rotted table exited 0: {report!r}")
+    log(f"[drivers] {card}: obstool: show {n} samples, --prom {len(prom.splitlines())} lines, "
+        f"diff of a snapshot with itself 0 changed, across {OBS_KEYS // 7 + 1} reads "
+        f"{changed} changed; health exit {rc_ok} (clean), --scrub on a flipped table byte "
+        f"exit {rc_rot}: {' | '.join(report.strip().splitlines()[:3])}")
+
+
+def _driver_examples(root: str, card: str, launches: dict) -> None:
+    """The four examples through their ``main`` on ``DEV``: quickstart (its
+    expectations asserted), kvstore_serving, the serving example (outputs
+    equal with and without the prefix cache, asserted), train_lm for
+    ``TRAIN_LM_STEPS`` and then resumed from its last checkpoint."""
+    import math
+
+    from repro_torch.examples import kvstore_serving, quickstart, serve_llm_prefix_cache
+    from repro_torch.examples import train_lm
+
+    def timed(name, fn):
+        t0 = time.perf_counter()
+        out = run_counted("drivers", name, fn, launches, require=False)
+        log(f"[time] drivers: {name} ran {time.perf_counter() - t0:.1f} s")
+        return out
+
+    argv = ["--device", DEV]
+    timed("quickstart", lambda: quickstart.main(argv))
+    kv = timed("kvstore_serving", lambda: kvstore_serving.main(argv))
+    check(bool(kv["found"].all()) and kv["present"] and kv["hot"],
+          "kvstore_serving: a written key not found, or the WAL lost one")
+    log(f"[drivers] {card}: kvstore_serving: {kv['stats']['partitions']} partitions, "
+        f"{kv['stats']['tables']} tables, WA {kv['stats']['wa']:.4f}, compactions "
+        f"{kv['kinds']}, hit rate {kv['found'].mean():.3f}, {kv['recovered']} recovered")
+    sv = timed("serve_llm_prefix_cache", lambda: serve_llm_prefix_cache.main(argv))
+    log(f"[drivers] {card}: serve_llm_prefix_cache: {sv['seconds'][0]:.3f} s without, "
+        f"{sv['seconds'][1]:.3f} s with the cache; prefill {sv['stats'].prefill_tokens} -> "
+        f"{sv['cached_stats'].prefill_tokens} tokens, {sv['cached_stats'].cached_tokens} reused")
+    ckpt = os.path.join(root, "train-lm")
+    first = timed("train_lm", lambda: train_lm.main(
+        argv + ["--steps", str(TRAIN_LM_STEPS), "--ckpt", ckpt]))
+    steps = sorted(int(d[5:]) for d in os.listdir(ckpt) if d.startswith("step_"))
+    check(100 in steps, f"train_lm: no step-100 checkpoint ({steps})")
+    more = TRAIN_LM_STEPS + TRAIN_LM_MORE
+    second = timed("train_lm resumed", lambda: train_lm.main(
+        argv + ["--steps", str(more), "--ckpt", ckpt]))
+    losses = {**first["losses"], **second["losses"]}
+    check(first["start"] == 0 and second["start"] == TRAIN_LM_STEPS,
+          f"train_lm resumed at step {second['start']}, not {TRAIN_LM_STEPS}")
+    check(all(math.isfinite(v) for v in losses.values()), f"train_lm: a loss is not finite: {losses}")
+    check(losses[TRAIN_LM_STEPS - 1] < losses[0], "train_lm: the loss did not fall")
+    kept = sorted(int(d[5:]) for d in os.listdir(ckpt) if d.startswith("step_"))
+    log(f"[drivers] {card}: train_lm: loss {losses[0]:.4f} at step 0, "
+        f"{losses[TRAIN_LM_STEPS - 1]:.4f} at {TRAIN_LM_STEPS - 1}, {losses[more - 1]:.4f} at "
+        f"{more - 1} after the resume; checkpoints {steps} after the first run, {kept} "
+        f"after the resumed one")
+
+
+def phase_drivers(card) -> tuple[dict, dict, dict]:
+    """The system's own drivers on the card through the port (see the module
+    docstring, phase 12); returns the kernels' launches over them, and their
+    shapes and errors on ``kernels_bench``'s store."""
+    from repro_torch.bench import common
+
+    class CardCSV(common.CSV):
+        """Rows logged beside the card's name and power limit."""
+
+        def emit(self, name, us_per_call, derived="", call=None, wall_s=None):
+            line = f"{name},{us_per_call:.3f},{derived}"
+            self.rows.append(line)
+            log(f"[drivers] {card}: {line}")
+
+    t_phase = time.perf_counter()
+    launches = {k: 0 for k in _launch_counts()}
+    shapes = {k: [] for k in launches}
+    err = {k: 0 for k in launches}
+    observe = (_paper_observer(card, shapes, err, timed=("kernels",), log_tag="drivers")
+               if DEV == "cuda" else None)
+    records = {}
+    with tempfile.TemporaryDirectory() as out:
+        benches = _driver_benches(out, observe)
+        for name in DRIVER_BENCHES:
+            t0 = time.perf_counter()
+            records[name] = run_counted("drivers", name, lambda: benches[name](CardCSV()),
+                                        launches, require=name in DRIVER_REQUIRE)
+            log(f"[time] drivers: {name} ran {time.perf_counter() - t0:.1f} s")
+        check(len(shapes["anchor_search"]) > 0 or DEV != "cuda",
+              "kernels_bench: the kernels were not held on its store")
+        _driver_records(records, card)
+        _driver_obstool(out, card)
+        _driver_examples(out, card, launches)
+    log(f"[drivers] phase 12 ran {time.perf_counter() - t_phase:.1f} s; kernel launches "
+        f"{launches}")
+    return launches, shapes, err
+
+
 def smi() -> str:
     p = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -3542,16 +3774,21 @@ def main() -> int:
         mark("phase 10")
         launch_launches = phase_launch(card, measured)
         mark("phase 11")
+        driver_launches, driver_shapes, driver_err = phase_drivers(card)
+        mark("phase 12")
         launches = {k: n + store_launches[k] + fleet_launches[k] + paper_launches[k]
-                    + train_launches[k] + launch_launches[k] for k, n in launches.items()}
+                    + train_launches[k] + launch_launches[k] + driver_launches[k]
+                    for k, n in launches.items()}
         for t in timings:
             t["shapes"] += (idx_shapes[t["name"]] + store_shapes[t["name"]]
-                            + fleet_shapes[t["name"]] + paper_shapes[t["name"]])
+                            + fleet_shapes[t["name"]] + paper_shapes[t["name"]]
+                            + driver_shapes[t["name"]])
             t["max_abs_err"] = max(t["max_abs_err"], idx_err[t["name"]], store_err[t["name"]],
-                                   fleet_err[t["name"]], paper_err[t["name"]])
+                                   fleet_err[t["name"]], paper_err[t["name"]],
+                                   driver_err[t["name"]])
         log(f"[device] peak allocated {max(peak, torch.cuda.max_memory_allocated())} bytes")
         log(f"[device] launches over all phases {launches} (phase 7: {fleet_launches}, "
-            f"phase 8: {paper_launches}); "
+            f"phase 8: {paper_launches}, phase 12: {driver_launches}); "
             f"script ran {time.perf_counter() - t_script:.1f} s")
     except (Fail, AssertionError) as e:
         print(f"chip_smoke.py: FAILED: {e}", file=sys.stderr)

@@ -9,7 +9,11 @@ its count of device launches (the device's kernels, copies and fills).
 """
 from __future__ import annotations
 
+import json
+import os
+import subprocess
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -17,6 +21,9 @@ import torch
 from repro_torch.core import keys as CK
 from repro_torch.core.runs import make_run
 from repro_torch.device import as_words, resolve
+
+# where a driver writes its JSON record unless told otherwise (git-ignored)
+BENCH_DIR = Path(__file__).resolve().parents[3] / "build" / "bench"
 
 
 def make_tables(
@@ -136,3 +143,31 @@ def check(cond, msg: str) -> None:
     """A figure's answer check (``check_answers=True``): raise on a wrong one."""
     if not cond:
         raise AssertionError(msg)
+
+
+def card(device) -> str:
+    """The card a run's numbers come from: nvidia-smi's name and power limit
+    for a CUDA device, ``"cpu"`` otherwise."""
+    if resolve(device).type != "cuda":
+        return "cpu"
+    p = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60,
+    )
+    if p.returncode != 0:
+        raise RuntimeError(f"nvidia-smi failed: {p.stderr.strip()}")
+    return p.stdout.strip().splitlines()[0]
+
+
+def json_path_for(name: str, json_path: str | None) -> str:
+    """``json_path``, or ``build/bench/BENCH_<name>.json`` in the checkout."""
+    return json_path or str(BENCH_DIR / f"BENCH_{name}.json")
+
+
+def write_json(path: str, record: dict) -> None:
+    """Write one benchmark's JSON record (its directory made as needed)."""
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    with open(path, "w") as f:
+        json.dump(record, f, indent=2)
+        f.write("\n")
+    print(f"# wrote {path}")

@@ -1,9 +1,10 @@
-"""Benchmark harness: one module per paper table/figure.
+"""Benchmark harness: one module per paper table/figure and per system
+benchmark, the same fourteen as the reference's ``benchmarks/run.py``.
 
-``python -m repro_torch.bench.run [--only fig11,...] [--device cuda|cpu]``
-prints name,us_per_call,derived CSV rows for every experiment (paper §5 at
-the reference's sizes). The reference's other benchmarks
-(``benchmarks/run.py``) are not ported.
+``python -m repro_torch.bench.run [--only fig11,kernels,...] [--device cuda|cpu]``
+prints name,us_per_call,derived CSV rows for every experiment at the
+reference's full sizes. The system benchmarks that write a JSON record
+write it under ``build/bench/``.
 """
 from __future__ import annotations
 
@@ -17,10 +18,18 @@ from repro_torch.bench.common import CSV
 
 def benches(device: str) -> dict:
     from repro_torch.bench import (
+        batch_bench,
+        cache_bench,
+        cluster_bench,
+        cursor_bench,
+        engine_bench,
         fig11_queries,
         fig13_groupsize,
         fig14_16_stores,
         fig17_ycsb,
+        kernels_bench,
+        rebuild_bench,
+        scrub_bench,
         table1_storage,
     )
 
@@ -31,6 +40,19 @@ def benches(device: str) -> dict:
         "table1": lambda c: table1_storage.run(c, device=device),
         "fig14_16": lambda c: fig14_16_stores.run(c, device=device),
         "fig17": lambda c: fig17_ycsb.run(c, device=device),
+        "kernels": lambda c: kernels_bench.run(c, device=device),
+        "rebuild": lambda c: rebuild_bench.run(c, device=device),
+        # scrub throughput, paced scrub, REMIX repair round trip
+        "scrub": lambda c: scrub_bench.run(c, device=device),
+        "cache": lambda c: cache_bench.run(c, device=device),
+        # also writes BENCH_queries.json
+        "batch": lambda c: batch_bench.run(c, device=device),
+        # streaming cursor vs re-seeking scans (BENCH_cursor.json)
+        "cursor": lambda c: cursor_bench.run(c, device=device),
+        # typed op batches through submit() (BENCH_engine.json)
+        "engine": lambda c: engine_bench.run(c, device=device),
+        # live shard split + replica catch-up (BENCH_cluster.json)
+        "cluster": lambda c: cluster_bench.run(c, device=device),
     }
 
 

@@ -43,6 +43,7 @@ import contextlib
 import logging
 import threading
 import time
+from collections import Counter
 
 import numpy as np
 
@@ -364,8 +365,10 @@ class Executor:
             for op in batch.ops
         ]
         self._c_batches.inc()
-        for op in batch.ops:
-            self._c_ops[op.kind.value].inc()
+        # one increment per kind, not per op: a 256-op batch took 256
+        # counter locks, ~1% of its time on the host
+        for kind, n in Counter(op.kind.value for op in batch.ops).items():
+            self._c_ops[kind].inc(n)
         trace = None
         if getattr(batch, "trace", False) or self._sampler.should_sample():
             trace = _tracing.Trace(

@@ -23,7 +23,6 @@ from __future__ import annotations
 
 import struct
 import threading
-from collections import OrderedDict
 
 import numpy as np
 
@@ -72,6 +71,13 @@ def encode_ckb(keys: np.ndarray, restart_interval: int = 16) -> bytes:
         restarts.astype("<u4").tobytes(),
         struct.pack("<I", len(restarts)),
     ])
+
+
+# _PREFIX_MASK[s]: the high s bytes of a u64 key (the prefix an entry
+# shares with the key before it)
+_PREFIX_MASK = np.array(
+    [((1 << 64) - 1) ^ ((1 << (64 - 8 * s)) - 1) for s in range(9)], np.uint64
+)
 
 
 class CKBReader:
@@ -127,8 +133,18 @@ class CKBReader:
         # Bounded LRU: ``memo_entries`` caps decoded *key* entries held
         # (None = unbounded, e.g. small in-memory CKBs); table handles
         # derive the budget from the block-cache byte budget, so the memo
-        # can no longer outgrow the cache it shadows.
-        self._iv: OrderedDict[int, np.ndarray] = OrderedDict()
+        # can no longer outgrow the cache it shadows. Held as arrays (the
+        # reference keeps an OrderedDict): interval j's keys sit in row
+        # ``_iv_slot[j]`` of ``_iv_keys`` (-1: not held), each row stamped
+        # with its last use; evicting the smallest stamps is the
+        # OrderedDict's pop from the front, and a batch's thousands of
+        # intervals cost array ops instead of a Python loop each
+        self._iv_keys = np.empty((0, self.interval), np.uint64)
+        self._iv_owner = np.empty(0, np.int64)  # interval of each row, -1: free
+        self._iv_stamp = np.empty(0, np.int64)
+        self._iv_slot: np.ndarray | None = None
+        self._iv_rows = 0
+        self._iv_clock = 0
         self.memo_entries_budget = (
             None if memo_entries is None else max(int(memo_entries), 1)
         )
@@ -148,7 +164,7 @@ class CKBReader:
         """Size/eviction accounting of the interval-decode memo (feeds
         the ``ckb_memo_{entries,bytes,evictions}`` registry gauges)."""
         with self._memo_lock:
-            rows = len(self._iv)
+            rows = self._iv_rows
             rk = 0 if self._rk64 is None else self._rk64.nbytes
             return dict(
                 entries=rows * self.interval,
@@ -287,10 +303,9 @@ class CKBReader:
         ii = self.interval
         with self._memo_lock:
             all_counts = np.minimum(self.n - js * ii, ii).astype(np.int64)
-            memo = self._iv
-            todo = np.array(
-                [j for j in js.tolist() if j not in memo], np.int64
-            )
+            if self._iv_slot is None:
+                self._iv_slot = np.full(self.n_restarts, -1, np.int64)
+            todo = js[self._iv_slot[js] < 0]
             if len(todo):
                 tr = _tracing.current()
                 t0 = _tracing.now() if tr is not None else 0.0
@@ -298,19 +313,41 @@ class CKBReader:
                 if tr is not None:
                     tr.leaf("ckb_decode", t0, _tracing.now(),
                             intervals=len(todo), rows=int(len(todo)) * ii)
-                for r, j in enumerate(todo.tolist()):
-                    memo[j] = keys[r]
-            out = np.empty((len(js), ii), np.uint64)
-            for r, j in enumerate(js.tolist()):
-                out[r] = memo[j]  # copies the row: safe to evict below
-                memo.move_to_end(j)
+                self._iv_store(todo, keys)
+            slot = self._iv_slot[js]
+            out = self._iv_keys[slot]  # a copy: safe to evict below
+            # last use in ``js`` order, as the reference's move_to_end
+            self._iv_stamp[slot] = self._iv_clock + np.arange(len(js))
+            self._iv_clock += len(js)
             budget = self.memo_entries_budget
             if budget is not None:
-                max_rows = max(1, budget // ii)
-                while len(memo) > max_rows:
-                    memo.popitem(last=False)
-                    self.memo_evictions += 1
+                excess = self._iv_rows - max(1, budget // ii)
+                if excess > 0:
+                    held = np.flatnonzero(self._iv_owner >= 0)
+                    old = held[np.argsort(self._iv_stamp[held])[:excess]]
+                    self._iv_slot[self._iv_owner[old]] = -1
+                    self._iv_owner[old] = -1
+                    self._iv_rows -= excess
+                    self.memo_evictions += excess
             return out, all_counts
+
+    def _iv_store(self, js: np.ndarray, keys: np.ndarray) -> None:
+        """Hold intervals ``js``' decoded keys in free memo rows (the row
+        arrays double when full)."""
+        free = np.flatnonzero(self._iv_owner < 0)
+        if len(free) < len(js):
+            cap = len(self._iv_owner)
+            grow = max(cap, len(js) - len(free))
+            self._iv_keys = np.concatenate(
+                [self._iv_keys, np.empty((grow, self.interval), np.uint64)])
+            self._iv_owner = np.concatenate([self._iv_owner, np.full(grow, -1, np.int64)])
+            self._iv_stamp = np.concatenate([self._iv_stamp, np.zeros(grow, np.int64)])
+            free = np.concatenate([free, cap + np.arange(grow)])
+        rows = free[: len(js)]
+        self._iv_keys[rows] = keys
+        self._iv_owner[rows] = js
+        self._iv_slot[js] = rows
+        self._iv_rows += len(js)
 
     def _decode_intervals_uncached(self, js: np.ndarray
                                    ) -> tuple[np.ndarray, np.ndarray]:
@@ -338,24 +375,43 @@ class CKBReader:
             m = cj == ci
             base[m] = pos + (offs[js[m]].astype(np.int64) - lo)
             pos += len(raw)
-        raw = np.concatenate(chunks) if len(chunks) > 1 else chunks[0]
-        kb = self.kb
-        cur = np.zeros((u, kb), np.uint8)
-        out = np.zeros((u, ii), np.uint64)
-        ptr = base.copy()
-        jj = np.arange(kb)
+        pad = 24 - pos % 8  # whole big-endian words, two past the end
+        raw = np.concatenate(chunks + [np.zeros(pad, np.uint8)])
+        # entry: u8 shared | u8 ns | suffix; kb == 8, so ns == 8 - shared
+        # and a key is one big-endian u64. The walk that finds each
+        # entry's offset (from the previous entry's shared length) is
+        # sequential within an interval, vectorized across intervals
+        ptr = np.empty((ii, u), np.int64)
+        shared = np.empty((ii, u), np.int64)
+        p = base
+        for k in range(ii):  # past a count the walk reads clipped junk
+            ptr[k] = p
+            shared[k] = raw.take(p, mode="clip")
+            p = p + 10 - shared[k]
+        ptr, shared = ptr.T, shared.T
+        # entries past the count write nothing: shared = 8 keeps the key
+        shared = np.where(np.arange(ii)[None, :] < counts[:, None],
+                          np.minimum(shared, 8), 8)
+        last = len(raw) - 16  # past every entry's first byte
+        # each entry's suffix, low-aligned: the 8 bytes from its start as
+        # a big-endian u64 (from the two aligned words it straddles),
+        # shifted right past the next entry's bytes
+        words = raw.view(">u8")
+        o = np.minimum(ptr + 2, last)
+        r = ((o & 7) * 8).astype(np.uint64)
+        q = o >> 3
+        word = (words[q].astype(np.uint64) << r) | (
+            (words[q + 1].astype(np.uint64) >> np.uint64(1)) >> (np.uint64(63) - r))
+        suf = np.where(shared < 8, word >> (8 * np.minimum(shared, 7)).astype(np.uint64),
+                       np.uint64(0))
+        keep = _PREFIX_MASK[shared.T]  # the shared prefix's high bytes
+        suf = np.ascontiguousarray(suf.T)
+        out = np.empty((ii, u), np.uint64)
+        key = np.zeros(u, np.uint64)
         for k in range(ii):
-            act = k < counts
-            p = np.where(act, ptr, 0)
-            shared = raw[p].astype(np.int64)  # entry: u8 shared | u8 ns
-            # fixed-width keys ⇒ ns == kb - shared: suffix byte j of the
-            # key replaces positions [shared, kb)
-            take = (jj[None, :] >= shared[:, None]) & act[:, None]
-            src = p[:, None] + 2 + (jj[None, :] - shared[:, None])
-            cur = np.where(take, raw[np.where(take, src, 0)], cur)
-            out[:, k] = cur.copy().view(">u8").ravel()
-            ptr = ptr + np.where(act, 2 + kb - shared, 0)
-        return out, counts
+            key = (key & keep[k]) | suf[k]
+            out[k] = key
+        return np.ascontiguousarray(out.T), counts
 
     def seek_batch(
         self, qs: np.ndarray, nlo: np.ndarray, nhi: np.ndarray

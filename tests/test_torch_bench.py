@@ -152,8 +152,11 @@ def test_profile_belongs_to_the_row_given_the_call(monkeypatch, capsys):
 def test_run_cli_lists_the_six_entries():
     from repro_torch.bench import run
 
+    # the six figures, then the eight system benchmarks (ported later)
     assert list(run.benches(CPU)) == ["fig11", "fig12", "fig13", "table1",
-                                      "fig14_16", "fig17"]
+                                      "fig14_16", "fig17", "kernels", "rebuild",
+                                      "scrub", "cache", "batch", "cursor", "engine",
+                                      "cluster"]
     p = subprocess.run(
         [sys.executable, "-m", "repro_torch.bench.run", "--only", "table1",
          "--device", "cpu"],

@@ -584,3 +584,18 @@ def test_checkpoint_on_card_round_trips(card, tmp_path):
     assert rp["w"].is_cuda and ro["mu"]["w"].dtype == torch.bfloat16
     assert torch.equal(rp["w"].cpu(), params["w"]) and torch.equal(rp["b"]["c"].cpu(), params["b"]["c"])
     assert torch.equal(ro["mu"]["w"].cpu(), opt["mu"]["w"]) and int(ro["step"]) == 4
+
+
+def test_kernels_bench_on_card(card, tmp_path):
+    """``kernels_bench.run(tiny=True)`` on the card: both kernels launch in
+    the micro rows and on the device path, one sync per batch, the device
+    and legacy paths agree (asserted inside), and the JSON names the card."""
+    from repro_torch.bench import common, kernels_bench
+
+    before = (TA.anchor_search.launches, TS.selector_decode.launches)
+    record = kernels_bench.run(common.CSV(), tiny=True, json_path=str(tmp_path / "k.json"),
+                               device=str(card))
+    assert TA.anchor_search.launches > before[0] and TS.selector_decode.launches > before[1]
+    assert record["pipeline"]["backend"] == "cuda"
+    assert record["pipeline"]["syncs_per_batch"] == 1.0
+    assert record["card"].startswith("NVIDIA")
