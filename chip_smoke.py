@@ -83,7 +83,8 @@ Phases, each fatal on failure:
    kernels on the new shard's operands, bit for bit, and timed; (5)
    ``add_replica`` of shard 0, a put_batch, ``catch_up_until(0)``, the
    replica's reads equal the primary's and the oracle's; (6) ``merge`` of
-   the split back; (7) close and ``Cluster(lows=None)``: cold reads until
+   the split back, none of the files it copied into the absorbing shard
+   in that shard's ``quarantine/``; (7) close and ``Cluster(lows=None)``: cold reads until
    every partition promotes, then promoted reads. Device memory around
    every topology change, beside each store's view bytes.
 8. paper — the paper's figures through the port's benchmarks
@@ -181,6 +182,13 @@ Phases, each fatal on failure:
    store's reads, ``health`` on that store (exit 0) and ``health --scrub``
    on a copy with a flipped table byte (non-zero). Both kernels' launches are counted per
    driver; kernels and batch must launch both.
+13. docs — the doc tools through the port (``src/repro_torch/tools/``):
+   ``check_docs --device cuda`` runs the 14 python blocks of ``docs/*.md``
+   on the card (every one must pass; both kernels must launch, through
+   the stores' device views); then ``mk_tables`` renders the dry-run and
+   roofline tables from phase 11's records (one row per record, each
+   roofline row's bottleneck the one ``analyze_cell`` gives). Its wall
+   time and the script's total are printed.
 
 The last lines are one JSON object listing the kernels, the card's name
 and power limit from nvidia-smi, and ``{"ok": true, "device": ...}``.
@@ -2434,14 +2442,33 @@ def phase_cluster(rng, root, card):
 
     # ---- stage 6: merge the split back
     def stage6():
+        import repro_torch.cluster.cluster as CC
+
         at = box["at"]
-        t0 = time.perf_counter()
-        rep = cluster.merge(at)
-        dt = time.perf_counter() - t0
+        absorbing = cluster.serve.shards[cluster.lows.index(at) - 1].cfg.data_dir
+        real, merged = CC.fetch_files, set()
+
+        def fetch(*a, **kw):  # records the names the merge copies in
+            out = real(*a, **kw)
+            merged.update(kw["rename"].values())
+            return out
+
+        CC.fetch_files = fetch
+        try:
+            t0 = time.perf_counter()
+            rep = cluster.merge(at)
+            dt = time.perf_counter() - t0
+        finally:
+            CC.fetch_files = real
         check(cluster.lows == lows0, f"lows after the merge {cluster.lows}")
+        qdir = os.path.join(absorbing, "quarantine")
+        held = sorted(merged & set(os.listdir(qdir))) if os.path.isdir(qdir) else []
+        check(merged and not held, f"the merge copied {len(merged)} files; in the absorbing "
+              f"shard's quarantine/: {held}")
         retired = [n for n in os.listdir(root) if n.startswith("retired-")]
         log(f"[cluster] {card}: stage 6: merge at {at} in {dt:.3f} s: {rep}; retired "
-            f"directories {retired}")
+            f"directories {retired}; none of the {len(merged)} merged names in the absorbing "
+            f"shard's quarantine/")
         box["mem"].append(("after the merge", _fleet_memory("after the merge", mem0, refs)))
         gc.collect()
         box["mem"].append(("after the merge and gc.collect()",
@@ -3354,10 +3381,10 @@ def _dryrun_cells():
 
 
 def _dryrun_records(card, procs):
-    """Each cell's record and roofline row; fails on a failed cell."""
+    """Each cell's record, its roofline row logged; fails on a failed cell."""
     from repro_torch.launch import roofline as RF
 
-    rows = []
+    recs = []
     for arch, shape, t0, p in procs:
         try:
             out, err = p.communicate(timeout=DRYRUN_TIMEOUT)
@@ -3375,8 +3402,8 @@ def _dryrun_records(card, procs):
         log(f"[launch] dry run {arch} {shape} on the fake {rec['mesh']} mesh, process wall "
             f"{wall:.1f} s: {json.dumps(rec)}")
         log(f"[launch] roofline ({card}'s constants): {RF.table_row(row)}")
-        rows.append(row)
-    return rows
+        recs.append(rec)
+    return recs
 
 
 def _count_train_step(card, measured):
@@ -3491,7 +3518,8 @@ def _launch_mesh_resume(card, root, launches):
 
 def phase_launch(card, measured):
     """Device meshes, the dry run and the roofline (module docstring, phase
-    11). Returns both kernels' launch counts over (a) and (c)."""
+    11). Returns both kernels' launch counts over (a) and (c), and the dry
+    run's records."""
     t_phase = time.perf_counter()
     procs = _dryrun_cells()  # (b) runs beside (a) and (c)
     launches = {"anchor_search": 0, "selector_decode": 0}
@@ -3500,7 +3528,7 @@ def phase_launch(card, measured):
                     lambda: _count_train_step(card, measured), launches, require=False)
         with tempfile.TemporaryDirectory() as root:
             _launch_mesh_resume(card, root, launches)
-        _dryrun_records(card, procs)
+        records = _dryrun_records(card, procs)
     finally:
         for *_, p in procs:
             if p.poll() is None:
@@ -3508,7 +3536,7 @@ def phase_launch(card, measured):
                 p.communicate()
     log(f"[launch] {card}: kernel launches of csrc/ on this path {launches}")
     log(f"[launch] phase 11 ran {time.perf_counter() - t_phase:.1f} s")
-    return launches
+    return launches, records
 
 
 # ---------------------------------------------------------------- phase 12
@@ -3711,6 +3739,57 @@ def phase_drivers(card) -> tuple[dict, dict, dict]:
     return launches, shapes, err
 
 
+# ---------------------------------------------------------------- phase 13
+def phase_docs(card, records) -> dict:
+    """The doc tools on the card (module docstring, phase 13); returns both
+    kernels' launches over the doc snippets."""
+    import io
+
+    from repro_torch.launch.roofline import analyze_cell
+    from repro_torch.tools import check_docs, mk_tables
+
+    t_phase = time.perf_counter()
+    launches = {k: 0 for k in _launch_counts()}
+
+    def docs():
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = check_docs.main(["--device", DEV])
+        return rc, buf.getvalue()
+
+    rc, text = run_counted("docs", "check_docs", docs, launches, require=DEV == "cuda")
+    for line in text.splitlines():
+        log(f"[docs] {line}")
+    total = len(check_docs.collect(check_docs.DOCS))
+    check(rc == 0 and total == 14 and text.splitlines()[-1] == f"{total}/{total} doc snippets passed",
+          f"check_docs --device {DEV}: rc {rc}, {text.splitlines()[-1:]}")
+    log(f"[docs] {card}: check_docs --device {DEV}: {text.splitlines()[-1]}")
+
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "dryrun.jsonl")
+        with open(path, "w") as f:
+            f.writelines(json.dumps(rec) + "\n" for rec in records)
+        rows = mk_tables.load(path)
+    dry = mk_tables.dryrun_table(rows)
+    roof = mk_tables.roofline_table(rows)
+    log(f"[docs] {card}: mk_tables on phase 11's {len(records)} dry-run records:")
+    for line in (dry + "\n\n" + roof).splitlines():
+        log(f"[docs] {line}")
+    dry_rows, roof_rows = dry.splitlines()[2:], roof.splitlines()[2:]
+    check(len(dry_rows) == len(records) and "| trace s |" in dry.splitlines()[0],
+          f"mk_tables: {len(dry_rows)} dry-run rows for {len(records)} records")
+    single = [rec for rec in records if rec["mesh"] == mk_tables.SINGLE_POD]
+    check(len(roof_rows) == len(single) == len(records),
+          f"mk_tables: {len(roof_rows)} roofline rows for {len(single)} single-pod records")
+    for rec, line in zip(single, roof_rows):
+        want = analyze_cell(rec)["bottleneck"]
+        check(line.startswith(f"| {rec['arch']} | {rec['shape']} |")
+              and line.split(" | ")[5] == want,
+              f"mk_tables: roofline row {line!r}, analyze_cell's bottleneck {want}")
+    log(f"[docs] phase 13 ran {time.perf_counter() - t_phase:.1f} s; kernel launches {launches}")
+    return launches
+
+
 def smi() -> str:
     p = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -3772,13 +3851,15 @@ def main() -> int:
         del mgr, views, starts, parts, domains, oracles
         train_launches, measured = phase_train(rng, card)
         mark("phase 10")
-        launch_launches = phase_launch(card, measured)
+        launch_launches, dryrun_records = phase_launch(card, measured)
         mark("phase 11")
         driver_launches, driver_shapes, driver_err = phase_drivers(card)
         mark("phase 12")
+        docs_launches = phase_docs(card, dryrun_records)
+        mark("phase 13")
         launches = {k: n + store_launches[k] + fleet_launches[k] + paper_launches[k]
                     + train_launches[k] + launch_launches[k] + driver_launches[k]
-                    for k, n in launches.items()}
+                    + docs_launches[k] for k, n in launches.items()}
         for t in timings:
             t["shapes"] += (idx_shapes[t["name"]] + store_shapes[t["name"]]
                             + fleet_shapes[t["name"]] + paper_shapes[t["name"]]
@@ -3788,7 +3869,8 @@ def main() -> int:
                                    driver_err[t["name"]])
         log(f"[device] peak allocated {max(peak, torch.cuda.max_memory_allocated())} bytes")
         log(f"[device] launches over all phases {launches} (phase 7: {fleet_launches}, "
-            f"phase 8: {paper_launches}, phase 12: {driver_launches}); "
+            f"phase 8: {paper_launches}, phase 12: {driver_launches}, "
+            f"phase 13: {docs_launches}); "
             f"script ran {time.perf_counter() - t_script:.1f} s")
     except (Fail, AssertionError) as e:
         print(f"chip_smoke.py: FAILED: {e}", file=sys.stderr)

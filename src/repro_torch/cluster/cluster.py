@@ -273,29 +273,40 @@ class Cluster:
                 # while traffic still flows
                 b.flush()
             io = self._io if self._io is not None else b.io
+            # the copies belong to no Version of A until absorb_shard
+            # commits them: reserve each name before its bytes land so
+            # A's file GC (a flush's, a release hook's) leaves them be
             rename: dict[str, str] = {}
-            state0 = b.storage.load_state()
-            if state0 is not None:
-                fetch_files(subset_state(state0, at, hi_b), b.storage,
-                            a.storage, io=io, rename=rename)
-            with self._gate:
-                self.serve.engine.close(wait=True)
-                state1, recs, _ver = b.replication_snapshot(0)
-                recs = clip_records(recs, at, hi_b)
-                if state1 is not None:
-                    sub = subset_state(state1, at, hi_b)
-                    fetch_files(sub, b.storage, a.storage, io=io,
-                                rename=rename)
-                else:
-                    sub = dict(seq=int(b.seq), partitions=[],
-                               unavailable=[])
-                report = a.absorb_shard(at, hi_b, sub, recs, rename=rename)
-                pairs = [(lo, db) for lo, db in zip(lows, shards)
-                         if lo != at]
-                self.serve.swap_shards(pairs)
-                self._ops_by_shard[lows[si - 1]] = (
-                    self._ops_by_shard.get(lows[si - 1], 0)
-                    + self._ops_by_shard.pop(at, 0))
+            try:
+                state0 = b.storage.load_state()
+                if state0 is not None:
+                    fetch_files(subset_state(state0, at, hi_b), b.storage,
+                                a.storage, io=io, rename=rename,
+                                reserve=a.reserve_incoming)
+                with self._gate:
+                    self.serve.engine.close(wait=True)
+                    state1, recs, _ver = b.replication_snapshot(0)
+                    recs = clip_records(recs, at, hi_b)
+                    if state1 is not None:
+                        sub = subset_state(state1, at, hi_b)
+                        fetch_files(sub, b.storage, a.storage, io=io,
+                                    rename=rename,
+                                    reserve=a.reserve_incoming)
+                    else:
+                        sub = dict(seq=int(b.seq), partitions=[],
+                                   unavailable=[])
+                    report = a.absorb_shard(at, hi_b, sub, recs,
+                                            rename=rename)
+                    pairs = [(lo, db) for lo, db in zip(lows, shards)
+                             if lo != at]
+                    self.serve.swap_shards(pairs)
+                    self._ops_by_shard[lows[si - 1]] = (
+                        self._ops_by_shard.get(lows[si - 1], 0)
+                        + self._ops_by_shard.pop(at, 0))
+            except BaseException:
+                # keeps whatever absorb_shard already committed
+                a.abandon_incoming(rename.values())
+                raise
             b.close()
             retired_dir = b.cfg.data_dir
             if retired_dir and os.path.basename(

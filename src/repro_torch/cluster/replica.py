@@ -25,6 +25,7 @@ import os
 
 from repro_torch.cluster.ship import (KEY_SPACE, clip_records, fetch_files,
                                 ship_snapshot, subset_state)
+from repro_torch.io.manifest import live_files
 
 
 class ShardFollower:
@@ -91,9 +92,17 @@ class ShardFollower:
         else:
             if state is not None:
                 sub = subset_state(state, self.lo, self.hi)
-                files, nbytes = fetch_files(sub, self.src.storage,
-                                            self.db.storage, io=self.io)
-                self.db.adopt_version(sub, records, advance_to=advance)
+                # fetched files belong to no Version of the replica until
+                # adopt_version publishes them: keep its file GC away
+                names = live_files(sub)
+                for name in names:
+                    self.db.reserve_incoming(name)
+                try:
+                    files, nbytes = fetch_files(sub, self.src.storage,
+                                                self.db.storage, io=self.io)
+                    self.db.adopt_version(sub, records, advance_to=advance)
+                finally:
+                    self.db.release_incoming(names)
                 applied = len(records)
             else:
                 # source has never committed a manifest: everything it

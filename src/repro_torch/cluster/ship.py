@@ -108,7 +108,8 @@ def copy_file(src: str, dst: str, io=None, site: str = "ship") -> int:
 
 
 def fetch_files(state: dict, src_storage: Storage, dst_storage: Storage,
-                io=None, rename: dict | None = None) -> tuple[int, int]:
+                io=None, rename: dict | None = None,
+                reserve=None) -> tuple[int, int]:
     """Copy the table/REMIX files a manifest state references.
 
     Two modes:
@@ -121,6 +122,10 @@ def fetch_files(state: dict, src_storage: Storage, dst_storage: Storage,
       two stores' ``t-%06d`` sequences collide). Names already mapped are
       skipped, so a two-phase copy (bulk while live, delta under the
       gate) ships each immutable file exactly once.
+
+    ``reserve``, when given, is called with each destination name before
+    its bytes land (``RemixDB.reserve_incoming`` of the store that will
+    adopt the files, so its file GC cannot collect them first).
 
     Returns ``(files_copied, bytes_copied)``.
     """
@@ -144,6 +149,8 @@ def fetch_files(state: dict, src_storage: Storage, dst_storage: Storage,
                    else dst_storage.remix_path(name))
             if os.path.exists(dst):
                 continue
+        if reserve is not None:
+            reserve(os.path.basename(dst))
         nbytes += copy_file(src, dst, io=io)
         nfiles += 1
     return nfiles, nbytes

@@ -19,10 +19,10 @@ import numpy as np
 
 from repro_torch.core import keys as CK
 from repro_torch.core import merge_iter as M
-from repro_torch.core.bloom import build_bloom
+from repro_torch.core.bloom import bloom_maybe_contains, build_bloom  # noqa: F401
 from repro_torch.core.runs import make_run, stack_runs
 from repro_torch.db.memtable import MemTable
-from repro_torch.db.partition import Table, merge_tables
+from repro_torch.db.partition import Table, chunk_table, merge_tables  # noqa: F401
 from repro_torch.device import as_words, resolve, u32_np
 
 

@@ -30,8 +30,9 @@ import torch
 
 from repro_torch.core import keys as CK
 from repro_torch.core.remix import Remix, build_remix
-from repro_torch.core.runs import (
+from repro_torch.core.runs import (  # noqa: F401 (Run, as in the reference)
     RowWindow,
+    Run,
     RunSet,
     make_run,
     merge_ranges_np,
@@ -41,6 +42,8 @@ from repro_torch.core.runs import (
 from repro_torch.core.view import NEWEST_BIT, PLACEHOLDER
 from repro_torch.db import clock
 from repro_torch.device import as_words, resolve, u32_np
+
+KEY_MAX = np.uint64(0xFFFFFFFFFFFFFFFF)
 
 
 def _pow2(n: int, lo: int = 1) -> int:

@@ -425,6 +425,12 @@ class RemixDB:
         self._ops_engine = None
         self._engine_lock = threading.Lock()
         self._in_flush = False  # file GC defers to flush-end while set
+        # names of files being copied into this directory that no Version
+        # references yet (a shard merge's or a replica catch-up's fetch);
+        # file GC treats them as live. The lock spans a whole collection,
+        # so a name reserved after it returns is seen by every later one.
+        self._incoming: set[str] = set()
+        self._incoming_lock = threading.Lock()
         # guards the (current Version, overlay source, seq) triple that
         # snapshots capture, against the flush's freeze/publish edges
         self._state_lock = threading.Lock()
@@ -658,11 +664,42 @@ class RemixDB:
             live: set[str] = set()
             for v in self.versions.live_versions():
                 live |= v.file_names()
-            removed = self.storage.gc_orphans(live)
+            with self._incoming_lock:
+                removed = self.storage.gc_orphans(live | self._incoming)
             if removed:
                 self.events.emit("file_gc", removed=len(removed))
         finally:
             self._flush_lock.release()
+
+    def reserve_incoming(self, name: str) -> None:
+        """Keep file GC away from ``name`` until :meth:`release_incoming`:
+        call before the file's bytes land in this store's directory."""
+        with self._incoming_lock:
+            self._incoming.add(name)
+
+    def release_incoming(self, names) -> None:
+        """Drop reservations made by :meth:`reserve_incoming`."""
+        with self._incoming_lock:
+            self._incoming.difference_update(names)
+
+    def abandon_incoming(self, names) -> None:
+        """Release the reservations of a copy that failed and delete its
+        files (and staging leftovers), except any that a Version or the
+        committed manifest already names."""
+        from repro_torch.io.manifest import live_files
+
+        names = set(names)
+        with self._flush_lock:
+            live = live_files(self.storage.load_state() or {})
+            for v in self.versions.live_versions():
+                live |= v.file_names()
+            self.release_incoming(names)
+            for name in names - live:
+                path = (self.storage.table_path(name) if name.endswith(".sst")
+                        else self.storage.remix_path(name))
+                for f in (path, path + ".ship-tmp"):
+                    if os.path.exists(f):
+                        os.remove(f)
 
     def _on_version_release(self, version, remaining) -> None:
         """A Version's last pin dropped: fold the physical-read counters
@@ -1440,6 +1477,8 @@ class RemixDB:
             self.wal.release_quarantine()
             with self._state_lock:
                 self.versions.publish(parts, seq_horizon=self.seq)
+            if rename:
+                self.release_incoming(rename.values())
         self._gc_files()
         self.events.emit("shard_absorb", lo=lo, hi=min(hi, 2**64 - 1),
                          partitions=len(new_parts), records=len(recs))

@@ -17,6 +17,7 @@ from __future__ import annotations
 import json
 import os
 import re
+import threading
 import time
 
 from repro_torch.io.faults import NULL_IO, CorruptionError
@@ -186,6 +187,15 @@ class Storage:
             ),
             default=0,
         )
+        # a shard merge's live copy allocates names in this directory
+        # while the store's own flush does
+        self._id_lock = threading.Lock()
+
+    def _alloc_id(self) -> int:
+        with self._id_lock:
+            n = self._next_id
+            self._next_id += 1
+            return n
 
     def wal_path(self) -> str:
         return os.path.join(self.root, "wal.log")
@@ -197,14 +207,10 @@ class Storage:
         return os.path.join(self.remix_dir, name)
 
     def alloc_table_name(self) -> str:
-        name = f"t-{self._next_id:06d}.sst"
-        self._next_id += 1
-        return name
+        return f"t-{self._alloc_id():06d}.sst"
 
     def alloc_remix_name(self) -> str:
-        name = f"x-{self._next_id:06d}.rmx"
-        self._next_id += 1
-        return name
+        return f"x-{self._alloc_id():06d}.rmx"
 
     def write_table(self, keys, vals, seq, tomb, exp=None, rtombs=None) -> str:
         """Write one table file; returns its manifest-relative name."""

@@ -6,7 +6,9 @@
   - device_view:     device residency manager + batched reads
 
 Each kernel module's wrapper carries its launch count, e.g.
-``repro_torch.kernels.anchor_search.anchor_search.launches``.
+``repro_torch.kernels.anchor_search.anchor_search.launches``. Unlike the
+reference's package, ``anchor_search`` and ``selector_decode`` here name
+the modules, not their wrappers, so those counts stay reachable.
 """
 from repro_torch.kernels import (  # noqa: F401
     anchor_search,
@@ -15,3 +17,5 @@ from repro_torch.kernels import (  # noqa: F401
     ref,
     selector_decode,
 )
+from repro_torch.kernels.anchor_search import anchor_le_count  # noqa: F401
+from repro_torch.kernels.device_view import DeviceView, DeviceViewManager  # noqa: F401

@@ -65,7 +65,7 @@ from repro_torch.launch.shapes import SHAPES, cell_supported, input_specs
 from repro_torch.launch.train import shard_tree
 from repro_torch.models import model as M
 from repro_torch.models.layers import split_params, tree_map
-from repro_torch.models.sharding import ShardingRules, place, set_rules
+from repro_torch.models.sharding import ShardingRules, get_rules, place, set_rules  # noqa: F401
 from repro_torch.train.optimizer import OptConfig, init_opt_state
 from repro_torch.train.train_step import make_train_step
 

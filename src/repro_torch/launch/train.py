@@ -52,7 +52,7 @@ from repro_torch.data.pipeline import DataPipeline
 from repro_torch.device import resolve
 from repro_torch.launch.mesh import ensure_process_group, make_debug_mesh, make_production_mesh
 from repro_torch.models import model as M
-from repro_torch.models.layers import split_params, tree_map
+from repro_torch.models.layers import is_param, split_params, tree_map  # noqa: F401
 from repro_torch.models.sharding import ShardingRules, mesh_axes, place, set_rules
 from repro_torch.train import checkpoint as C
 from repro_torch.train.optimizer import OptConfig, init_opt_state

@@ -35,6 +35,10 @@ class Param:
     axes: tuple
 
 
+def is_param(x):
+    return isinstance(x, Param)
+
+
 def tree_map(fn, tree):
     """Map ``fn`` over the leaves of a tree of nested dicts."""
     if isinstance(tree, dict):

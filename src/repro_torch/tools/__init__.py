@@ -1,1 +1,2 @@
-"""Operator tools on the port: ``python -m repro_torch.tools.obstool``."""
+"""Operator and doc tools on the port: ``python -m
+repro_torch.tools.obstool``, ``.check_docs`` and ``.mk_tables``."""

@@ -10,7 +10,9 @@ with the same rules and seed, so both ships see the same faults. Shipped
 directories and every shard directory of a fleet are byte-identical
 between the packages, and each package reopens a fleet that the other
 wrote. ``split_under_async_traffic`` runs on the port alone: its threads
-interleave differently on each side.
+interleave differently on each side. The file-GC windows of a merge and
+of a replica's catch-up run each package on its own and record where
+they part: the port survives them, the reference raises.
 """
 import os
 import shutil
@@ -334,6 +336,125 @@ def test_split_under_async_traffic_zero_failed_ops(tmp_path):
     assert completed[0] > 0
     assert cluster.lows == [0]
     cluster.close()
+
+
+def _packages():
+    """(name, cluster module, replica module, store class, store config)
+    of each side."""
+    import repro.cluster.cluster as r_cluster
+    import repro.cluster.replica as r_replica
+    import repro_torch.cluster.cluster as t_cluster
+    import repro_torch.cluster.replica as t_replica
+    from repro_torch.db.store import RemixDB as TRemixDB
+
+    return (("reference", r_cluster, r_replica, RRemixDB, _cfg()),
+            ("port", t_cluster, t_replica, TRemixDB,
+             to_port(_cfg(), PORT_CPU)))
+
+
+def test_merge_survives_flush_during_copy(tmp_path, monkeypatch):
+    """A flush of the absorbing shard while the merge's live copy is on
+    disk but committed by no Version of that shard: its file GC must
+    leave the copies alone. The port reserves each name before the bytes
+    land; the reference's GC quarantines them and the merge's absorb then
+    raises ``FileNotFoundError``."""
+    rng = np.random.default_rng(21)
+    keys = rng.choice(KEY_RANGE, size=6000, replace=False).astype(np.uint64)
+    extra = keys[keys < KEY_RANGE // 2][:200]
+    for name, cmod, _rmod, _store, cfg in _packages():
+        real = cmod.fetch_files
+        copied, calls = [], []
+
+        def fetch(*a, **kw):
+            out = real(*a, **kw)
+            copied.extend(kw["rename"].values())
+            calls.append(1)
+            if len(calls) == 1:
+                cluster.put_batch(extra, _vals(extra, 9))
+                cluster.serve.shards[0].flush()
+            return out
+
+        monkeypatch.setattr(cmod, "fetch_files", fetch)
+        cluster = cmod.Cluster(str(tmp_path / name), lows=(0,), config=cfg)
+        try:
+            cluster.put_batch(keys[:4000], _vals(keys[:4000], 1))
+            cluster.flush()
+            cluster.split(KEY_RANGE // 2)
+            cluster.put_batch(keys[4000:], _vals(keys[4000:], 2))
+            absorbing = cluster.serve.shards[0].cfg.data_dir
+            if name == "reference":
+                with pytest.raises(FileNotFoundError):
+                    cluster.merge(cluster.lows[1])
+                continue
+            cluster.merge(cluster.lows[1])
+            assert cluster.lows == [0] and copied
+            oracle = {int(k): 1 for k in keys[:4000]}
+            oracle.update({int(k): 2 for k in keys[4000:]})
+            oracle.update({int(k): 9 for k in extra})
+            order = np.asarray(sorted(oracle), np.uint64)
+            want = _vals(order, 0)
+            want[:, 1] = [oracle[int(k)] for k in order]
+            found, vals = cluster.get_batch(order)
+            assert np.asarray(found, bool).all()
+            np.testing.assert_array_equal(np.asarray(vals), want)
+            sk, sv = cluster.scan(0, KEY_RANGE)
+            np.testing.assert_array_equal(np.asarray(sk), order)
+            np.testing.assert_array_equal(np.asarray(sv), want)
+            qdir = os.path.join(absorbing, "quarantine")
+            held = set(os.listdir(qdir)) if os.path.isdir(qdir) else set()
+            assert not held & set(copied)
+        finally:
+            cluster.close()
+
+
+def test_replica_catchup_pin_drop_during_fetch(tmp_path, monkeypatch):
+    """The replica catch-up's window between ``fetch_files`` and
+    ``adopt_version``: the last pin of a retired Version of the replica's
+    store drops there, and its release hook runs the store's file GC.
+    The port reserves the fetched names and catches up; the reference's
+    GC quarantines them and ``adopt_version`` raises
+    ``FileNotFoundError``."""
+    rng = np.random.default_rng(22)
+    keys = rng.choice(1 << 20, size=3000, replace=False).astype(np.uint64)
+    outcome = {}
+    for name, _cmod, rmod, store, cfg in _packages():
+        real = rmod.fetch_files
+        armed = []
+
+        def fetch(*a, **kw):
+            out = real(*a, **kw)
+            if armed:
+                armed.pop().close()
+            return out
+
+        monkeypatch.setattr(rmod, "fetch_files", fetch)
+        db = store.open(str(tmp_path / name / "src"), cfg)
+        rep = rmod.Replica(db, str(tmp_path / name / "replica"))
+        try:
+            db.put_batch(keys[:1000], _vals(keys[:1000], 1))
+            db.flush()
+            rep.catch_up()
+            pinned = rep.db.snapshot()  # holds the current Version
+            db.put_batch(keys[1000:2000], _vals(keys[1000:2000], 2))
+            db.flush()
+            rep.catch_up()  # retires the pinned Version
+            db.put_batch(keys[2000:], _vals(keys[2000:], 3))
+            db.flush()
+            armed.append(pinned)
+            try:
+                r = rep.catch_up()
+                outcome[name] = "ok"
+                assert r["lag"] == 0 and r["files"] > 0
+                np.testing.assert_array_equal(db.scan(0, 1 << 20)[0],
+                                              rep.scan(0, 1 << 20)[0])
+                np.testing.assert_array_equal(db.scan(0, 1 << 20)[1],
+                                              rep.scan(0, 1 << 20)[1])
+            except FileNotFoundError:
+                outcome[name] = "FileNotFoundError"
+        finally:
+            rep.close()
+            db.close()
+    assert outcome == dict(reference="FileNotFoundError", port="ok")
 
 
 def test_placement_splits_hot_shard(tmp_path):

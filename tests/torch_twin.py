@@ -10,7 +10,8 @@ reads unchanged. Objects that are not plain values (stores, snapshots,
 cursors, futures, partitions) come back as Twins themselves.
 
 Directories are split per side: the port's is the reference's with
-``.port`` appended. That covers a config's ``data_dir`` and ``wal_dir``,
+``.port`` appended. That covers a config's ``data_dir``, ``wal_dir`` and
+``event_log_path``,
 ``pair_class(...).open(path)``, and the directory arguments that the
 serving and cluster tiers take as plain values (``_PATH_PARAMS``: a
 ``Cluster`` root, a ``ship_snapshot`` / ``ShardFollower`` / ``Replica`` /
@@ -119,7 +120,7 @@ def to_port(x, port_cfg: dict | None = None):
             for f in dataclasses.fields(x) if f.init
         }
         if cls.__name__ == "RemixDBConfig":
-            for key in ("data_dir", "wal_dir"):
+            for key in ("data_dir", "wal_dir", "event_log_path"):
                 if kw[key] is not None:
                     kw[key] = _port_path(kw[key])
             if kw["device_path"] == "auto":
