@@ -359,6 +359,12 @@ class Executor:
             # submission (and with it every legacy wrapper) keeps
             # working, matching the stores' own close-then-read contract
             raise RuntimeError("executor is closed to async submissions")
+        if not sync:
+            # the pool starts before the batch's clocks and trace: a thread
+            # start is the executor's cost, not the batch's, and takes
+            # milliseconds on a loaded host
+            with self._qcv:
+                self._ensure_workers()
         now = time.monotonic()
         deadlines = [
             None if op.deadline_ms is None else now + op.deadline_ms / 1e3
@@ -380,11 +386,12 @@ class Executor:
         results: list[OpResult | None] = [None] * len(batch.ops)
         t0 = time.monotonic()
         ta = _tracing.now()
+        ca = _tracing.cpu_now() if trace is not None else None
         cost = self._admit(batch, deadlines, results)
         wait_s = time.monotonic() - t0
         self._h_wait.observe(wait_s)
         if trace is not None:
-            trace.leaf("admission", ta, _tracing.now(), bytes=cost)
+            trace.leaf("admission", ta, c0=ca, bytes=cost)
         t_sub = time.monotonic()
         if all(r is not None for r in results):  # every op expired waiting
             self._finish(fut, batch, results, cost, wait_s, started=False,
@@ -396,7 +403,6 @@ class Executor:
                       trace=trace, t_sub=t_sub)
             return fut
         with self._qcv:
-            self._ensure_workers()
             # ticket issue and enqueue are atomic (same lock), so queue
             # order == ticket order and a worker never starts a batch
             # whose predecessor is still stuck behind it in the queue
@@ -502,6 +508,8 @@ class Executor:
             self._release_order(fut)
             self._c_cancelled_batches.inc()
             return
+        if trace is not None:
+            trace.picked_up()
         try:
             with _tracing.activate(trace):
                 self._execute(fut, batch, deadlines, results, trace)
@@ -792,7 +800,7 @@ class Executor:
                            gets=len(g.gets) + len(g.mgets),
                            scans=sum(len(v) for v in g.scans.values())):
                     self._exec_points(
-                        fut, batch, deadlines, results, g, view, mg
+                        fut, batch, deadlines, results, g, view, mg, trace
                     )
                     self._exec_scans(fut, batch, deadlines, results, g, view)
             for i, (found, vals) in mg.items():
@@ -801,23 +809,26 @@ class Executor:
                         status=OpStatus.OK, found=found, vals=vals
                     )
 
-    def _exec_points(self, fut, batch, deadlines, results, g, view, mg):
-        gets = self._precheck(fut, deadlines, results, g.gets)
-        mgets = [
-            (i, pos)
-            for i, pos in g.mgets
-            if results[i] is None
-            and self._precheck(fut, deadlines, results, [i])
-        ]
-        keys: list[np.ndarray] = []
-        for i in gets:
-            keys.append(np.array([batch.ops[i].key], np.uint64))
-        for i, pos in mgets:
-            if i not in mg:
-                q = len(batch.ops[i].keys)
-                mg[i] = [np.zeros(q, bool),
-                         np.zeros((q, self.vw), np.uint32)]
-            keys.append(np.asarray(batch.ops[i].keys, np.uint64)[pos])
+    def _exec_points(self, fut, batch, deadlines, results, g, view, mg,
+                     trace=None):
+        with _span(trace, "exec.keys"):
+            gets = self._precheck(fut, deadlines, results, g.gets)
+            mgets = [
+                (i, pos)
+                for i, pos in g.mgets
+                if results[i] is None
+                and self._precheck(fut, deadlines, results, [i])
+            ]
+            keys: list[np.ndarray] = []
+            for i in gets:
+                keys.append(np.array([batch.ops[i].key], np.uint64))
+            for i, pos in mgets:
+                if i not in mg:
+                    q = len(batch.ops[i].keys)
+                    mg[i] = [np.zeros(q, bool),
+                             np.zeros((q, self.vw), np.uint32)]
+                keys.append(np.asarray(batch.ops[i].keys, np.uint64)[pos])
+            qk = np.concatenate(keys) if keys else None
         if not keys:
             return
         if len(gets) == 1 and not mgets and len(keys[0]) == 1:
@@ -837,7 +848,6 @@ class Executor:
                 status=OpStatus.OK, found=val is not None, value=val
             )
             return
-        qk = np.concatenate(keys)
         try:
             found, vals = self.stores[g.shard]._get_batch_at(view(g.shard), qk)
         except _IO_ERRORS:
@@ -852,19 +862,20 @@ class Executor:
             for i, _ in mgets:
                 results[i] = OpResult(status=OpStatus.ERROR, error=repr(e), exc=e)
             return
-        off = 0
-        for i in gets:
-            results[i] = OpResult(
-                status=OpStatus.OK,
-                found=bool(found[off]),
-                value=vals[off].copy() if found[off] else None,
-            )
-            off += 1
-        for i, pos in mgets:
-            m = len(pos)
-            mg[i][0][pos] = found[off : off + m]
-            mg[i][1][pos] = vals[off : off + m]
-            off += m
+        with _span(trace, "exec.results"):
+            off = 0
+            for i in gets:
+                results[i] = OpResult(
+                    status=OpStatus.OK,
+                    found=bool(found[off]),
+                    value=vals[off].copy() if found[off] else None,
+                )
+                off += 1
+            for i, pos in mgets:
+                m = len(pos)
+                mg[i][0][pos] = found[off : off + m]
+                mg[i][1][pos] = vals[off : off + m]
+                off += m
 
     def _points_isolated(self, batch, results, g, view, gets, mgets, mg):
         """Per-op fallback after a typed I/O failure in the vectorized

@@ -68,6 +68,7 @@ from repro_torch.db.wal import FLAG_RANGE, FLAG_TOMB, WAL, unpack_range_hi
 from repro_torch.device import as_words, resolve, u32_np
 from repro_torch.io.faults import (CorruptionError, IOContext,
                              UnavailableSpanError)
+from repro_torch.obs import tracing
 from repro_torch.obs.events import EventLog, NULL_EVENTS
 from repro_torch.obs.metrics import MetricsRegistry, merge_snapshots
 
@@ -1653,47 +1654,49 @@ class RemixDB:
         return r.found, r.vals
 
     def _get_batch_at(self, view: Snapshot, keys):
-        keys = np.asarray(keys, np.uint64)
-        found = np.zeros(len(keys), bool)
-        vals = np.zeros((len(keys), self.cfg.vw), np.uint32)
-        rest = []
-        now = clock.now()
-        for i, k in enumerate(keys.tolist()):
-            e = view.overlay.get(k)
-            if e is not None:
-                found[i] = not entry_dead(e, now)
-                vals[i] = e.val
-            elif not (view.ranges and view.covers(k)):
-                rest.append(i)
-        parts = view.partitions
-        if rest and self._unavailable:
-            for i in rest:
-                self._check_unavailable_point(int(keys[i]))
-        if rest:
-            rest = np.array(rest)
-            pidx = route_host([p.lo for p in parts], keys[rest])
-            for pi in np.unique(pidx):
-                sel = rest[pidx == pi]
-                p = parts[pi]
-                if self._cold_ok(p):
-                    f, v = p.cold_get_batch(keys[sel])
-                    found[sel] = f
-                    vals[sel[f]] = v[f]
-                    continue
-                dv = self._device_view(p)
-                if dv is not None:
-                    f, v = self.device_views.get_batch(dv, keys[sel], now)
-                    found[sel] = f
-                    vals[sel] = v
-                    continue
-                remix, runset = p.index()
-                kq = keys[sel]
-                pad = _pow2pad(len(kq))
-                kq = np.pad(kq, (0, pad - len(kq)))
-                qk = as_words(CK.pack_u64(kq), p.device)
-                f, v = self._query_mod().get(remix, runset, qk, **self._qkw())
-                found[sel] = f.cpu().numpy()[: len(sel)]
-                vals[sel] = u32_np(v)[: len(sel)]
+        with tracing.span("store.overlay"):
+            keys = np.asarray(keys, np.uint64)
+            found = np.zeros(len(keys), bool)
+            vals = np.zeros((len(keys), self.cfg.vw), np.uint32)
+            rest = []
+            now = clock.now()
+            for i, k in enumerate(keys.tolist()):
+                e = view.overlay.get(k)
+                if e is not None:
+                    found[i] = not entry_dead(e, now)
+                    vals[i] = e.val
+                elif not (view.ranges and view.covers(k)):
+                    rest.append(i)
+            parts = view.partitions
+            if rest and self._unavailable:
+                for i in rest:
+                    self._check_unavailable_point(int(keys[i]))
+            routed = []
+            if rest:
+                rest = np.array(rest)
+                pidx = route_host([p.lo for p in parts], keys[rest])
+                routed = [(pi, rest[pidx == pi]) for pi in np.unique(pidx)]
+        for pi, sel in routed:
+            p = parts[pi]
+            if self._cold_ok(p):
+                f, v = p.cold_get_batch(keys[sel])
+                found[sel] = f
+                vals[sel[f]] = v[f]
+                continue
+            dv = self._device_view(p)
+            if dv is not None:
+                f, v = self.device_views.get_batch(dv, keys[sel], now)
+                found[sel] = f
+                vals[sel] = v
+                continue
+            remix, runset = p.index()
+            kq = keys[sel]
+            pad = _pow2pad(len(kq))
+            kq = np.pad(kq, (0, pad - len(kq)))
+            qk = as_words(CK.pack_u64(kq), p.device)
+            f, v = self._query_mod().get(remix, runset, qk, **self._qkw())
+            found[sel] = f.cpu().numpy()[: len(sel)]
+            vals[sel] = u32_np(v)[: len(sel)]
         return found, vals
 
     def scan(self, start_key: int, n: int) -> tuple[np.ndarray, np.ndarray]:

@@ -309,9 +309,10 @@ class CKBReader:
             if len(todo):
                 tr = _tracing.current()
                 t0 = _tracing.now() if tr is not None else 0.0
+                c0 = _tracing.cpu_now() if tr is not None else 0.0
                 keys, _ = self._decode_intervals_uncached(todo)
                 if tr is not None:
-                    tr.leaf("ckb_decode", t0, _tracing.now(),
+                    tr.leaf("ckb_decode", t0, c0=c0,
                             intervals=len(todo), rows=int(len(todo)) * ii)
                 self._iv_store(todo, keys)
             slot = self._iv_slot[js]

@@ -273,6 +273,7 @@ class SSTableReader:
         """
         tr = _tracing.current()
         t0 = _tracing.now() if tr is not None else 0.0
+        c0 = _tracing.cpu_now() if tr is not None else 0.0
         bb = self.block_bytes
         lo = self._data_start + idx * bb
         hi = min(lo + bb, self._data_end)
@@ -288,7 +289,7 @@ class SSTableReader:
             raise CorruptionError(self.path, self.block_section(idx), idx)
         self.disk_bytes_read += hi - lo
         if tr is not None:
-            tr.leaf("disk_read", t0, _tracing.now(), bytes=hi - lo, block=idx)
+            tr.leaf("disk_read", t0, c0=c0, bytes=hi - lo, block=idx)
         return chunk
 
     def _mmap_block(self, idx: int) -> memoryview:
@@ -306,6 +307,7 @@ class SSTableReader:
         if idx not in self._verified:
             tr = _tracing.current()
             t0 = _tracing.now() if tr is not None else 0.0
+            c0 = _tracing.cpu_now() if tr is not None else 0.0
             io = self._io
             io.run("mmap", lambda: io.check_read(self.path))
             # verify against the (possibly fault-mutated) bytes: the CRC
@@ -319,8 +321,8 @@ class SSTableReader:
             self._verified.add(idx)
             self.disk_bytes_read += hi - lo
             if tr is not None:
-                tr.leaf("disk_read", t0, _tracing.now(),
-                        bytes=hi - lo, block=idx, mmap=True)
+                tr.leaf("disk_read", t0, c0=c0, bytes=hi - lo, block=idx,
+                        mmap=True)
         return view
 
     def _block_loader(self, idx: int):

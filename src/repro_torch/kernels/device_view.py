@@ -39,7 +39,11 @@ release hook, from whichever thread unpins a Version. The reference has
 no lock, and two threads asking for the same partition there upload it
 twice and count its bytes twice.
 
-Host syncs are counted in the module-level ``SYNCS`` counter.
+Host syncs are counted in the module-level ``SYNCS`` counter. Under an
+active trace each partition a batch touches records ``view.resolve``
+(the lock, the lookup, a ``view.upload`` on first touch), ``view.dispatch``
+(the query upload, the kernel composition, the pinned buffers and copies,
+all enqueued) and ``view.sync`` (the blocking wait on the copies).
 """
 from __future__ import annotations
 
@@ -53,6 +57,7 @@ import torch
 from repro_torch.core import keys as CK
 from repro_torch.device import resolve
 from repro_torch.kernels import ops
+from repro_torch.obs import tracing
 from repro_torch.obs.events import NULL_EVENTS
 from repro_torch.obs.metrics import MetricsRegistry
 
@@ -80,14 +85,15 @@ def _wait(ev) -> None:
     around a batch then proves that nothing else waited on the card)."""
     global SYNCS
     SYNCS += 1
-    if ev is None:
-        return
-    mode = torch.cuda.get_sync_debug_mode()
-    torch.cuda.set_sync_debug_mode(0)
-    try:
-        ev.synchronize()
-    finally:
-        torch.cuda.set_sync_debug_mode(mode)
+    with tracing.span("view.sync"):
+        if ev is None:
+            return
+        mode = torch.cuda.get_sync_debug_mode()
+        torch.cuda.set_sync_debug_mode(0)
+        try:
+            ev.synchronize()
+        finally:
+            torch.cuda.set_sync_debug_mode(mode)
 
 
 def _pinned_like(tensors) -> list[torch.Tensor]:
@@ -98,11 +104,17 @@ def _pinned_like(tensors) -> list[torch.Tensor]:
     return [torch.empty(t.shape, dtype=t.dtype, pin_memory=True) for t in tensors]
 
 
-def _fetch(*tensors) -> list[np.ndarray]:
-    """The single blocking device→host transfer of a batch: every output
-    copied without blocking into pinned host memory, then one wait."""
+def _enqueue_fetch(*tensors) -> tuple:
+    """A batch's outputs copied without blocking into pinned host memory:
+    the buffers and the event after the copies, for :func:`_fetch`."""
     host = _pinned_like(tensors)
-    _wait(_start_fetch(tensors, host))
+    return host, _start_fetch(tensors, host)
+
+
+def _fetch(host, ev) -> list[np.ndarray]:
+    """The single blocking device→host transfer of a batch: one wait on the
+    copies :func:`_enqueue_fetch` enqueued; their host arrays."""
+    _wait(ev)
     return [h.numpy() for h in host]
 
 
@@ -194,7 +206,7 @@ class DeviceViewManager:
     def view_for(self, p) -> DeviceView | None:
         """Resident view for partition ``p`` — uploading on first use —
         or None when no tier fits the budget (caller falls back)."""
-        with self._lock:
+        with tracing.span("view.resolve"), self._lock:
             return self._view_for(p)
 
     def _view_for(self, p) -> DeviceView | None:
@@ -214,16 +226,19 @@ class DeviceViewManager:
         else:
             self._c_fallback.inc()
             return None
-        remix, runset, exp = p.device_index(with_vals=tier == "full")
-        nbytes = _view_nbytes(remix, runset, exp)
-        self._evict_to(self.budget_bytes - nbytes)
-        vw = p.tables[0].vw if p.tables else runset.vw
-        v = DeviceView(
-            partition=p, tier=tier, remix=remix, runset=runset,
-            exp=exp, nbytes=nbytes, vw=int(vw),
-        )
-        self._views[id(p)] = v
-        self._resident += nbytes
+        with tracing.span("view.upload", tier=tier) as up:
+            remix, runset, exp = p.device_index(with_vals=tier == "full")
+            nbytes = _view_nbytes(remix, runset, exp)
+            if up is not None:
+                up.args["bytes"] = nbytes
+            self._evict_to(self.budget_bytes - nbytes)
+            vw = p.tables[0].vw if p.tables else runset.vw
+            v = DeviceView(
+                partition=p, tier=tier, remix=remix, runset=runset,
+                exp=exp, nbytes=nbytes, vw=int(vw),
+            )
+            self._views[id(p)] = v
+            self._resident += nbytes
         self.events.emit(
             "device_upload", lo=int(p.lo), tier=tier, bytes=int(nbytes),
             tables=len(p.tables),
@@ -269,16 +284,19 @@ class DeviceViewManager:
         Returns (found (Q,) bool, vals (Q, VW) uint32)."""
         keys_u64 = np.asarray(keys_u64, np.uint64)
         q = len(keys_u64)
-        fd, vd, rid_d, row_d = ops.get_live(
-            dv.remix, dv.runset, dv.exp, self._queries(keys_u64), int(now)
-        )
+        with tracing.span("view.dispatch"):
+            fd, vd, rid_d, row_d = ops.get_live(
+                dv.remix, dv.runset, dv.exp, self._queries(keys_u64), int(now)
+            )
+            out = (fd, vd) if dv.tier == "full" else (fd, rid_d, row_d)
+            host, ev = _enqueue_fetch(*out)
         self._c_batches.inc()
         if dv.tier == "full":
-            found, vals = _fetch(fd, vd)  # THE one host sync
+            found, vals = _fetch(host, ev)  # THE one host sync
             found, vals = found[:q], vals[:q].view(np.uint32)
             self._c_rows.inc(int(found.sum()))
             return found, vals
-        found, rid, row = _fetch(fd, rid_d, row_d)
+        found, rid, row = _fetch(host, ev)
         found, rid, row = found[:q], rid[:q], row[:q].astype(np.int64)
         vals = np.zeros((q, dv.vw), np.uint32)
         for r in np.unique(rid[found]):
@@ -298,16 +316,18 @@ class DeviceViewManager:
         if dv.tier == "index" and with_vals:
             return self._scan_pipelined(dv, starts_u64, width, int(now))
         q = len(starts_u64)
-        kd, vd, md, _, _, _ = ops.scan_live(
-            dv.remix, dv.runset, dv.exp, self._queries(starts_u64), int(now),
-            width=width,
-        )
+        with tracing.span("view.dispatch"):
+            kd, vd, md, _, _, _ = ops.scan_live(
+                dv.remix, dv.runset, dv.exp, self._queries(starts_u64), int(now),
+                width=width,
+            )
+            host, ev = _enqueue_fetch(*((kd, vd, md) if with_vals else (kd, md)))
         self._c_batches.inc()
         if with_vals:
-            keys, vals, valid = _fetch(kd, vd, md)
+            keys, vals, valid = _fetch(host, ev)
             vals = vals.view(np.uint32)
         else:
-            keys, valid = _fetch(kd, md)
+            keys, valid = _fetch(host, ev)
             vals = None
         out = []
         rows = 0
@@ -333,14 +353,16 @@ class DeviceViewManager:
         host = [None, None]  # the pair of pinned buffer sets, by slice parity
 
         def launch(si):
-            kd, _, md, rid_d, row_d, _ = ops.scan_live(
-                dv.remix, dv.runset, dv.exp,
-                self._queries(padded[si * s:(si + 1) * s]), now, width=width,
-            )
-            out = (kd, md, rid_d, row_d)
-            if host[si % 2] is None or not kd.is_cuda:
-                host[si % 2] = _pinned_like(out)
-            return host[si % 2], _start_fetch(out, host[si % 2])
+            with tracing.span("view.dispatch"):
+                kd, _, md, rid_d, row_d, _ = ops.scan_live(
+                    dv.remix, dv.runset, dv.exp,
+                    self._queries(padded[si * s:(si + 1) * s]), now,
+                    width=width,
+                )
+                out = (kd, md, rid_d, row_d)
+                if host[si % 2] is None or not kd.is_cuda:
+                    host[si % 2] = _pinned_like(out)
+                return host[si % 2], _start_fetch(out, host[si % 2])
 
         out: list = []
         rows = 0
