@@ -25,6 +25,12 @@ Phases, each fatal on failure:
    over CUDA graphs of many launches) beside its bound, its plain version,
    a PyTorch yardstick and a launch floor (a one-element ``add_`` timed the
    same way); end-to-end µs per key / per query and profiled batches.
+   Then ``get_resolve`` (the end of a device-view get after the seek's
+   decode) on views shaped like the benchmark's YCSB C records (VW 30 in
+   4 tables, VW 250 in 2, of 2^16 keys each) at 64, 256 and 16,384
+   queries: bit for bit against its plain version and the eager
+   composition it replaced, then timed beside that composition (device
+   time as above, and host µs a call to completion) and its bytes bound.
 5. index tier — the deployment the reference store's defaults put on the
    ``index`` residency tier (``src/repro/db/store.py``: 256 MiB device
    budget, 64 MiB block cache, 64-query pipeline slices): 2 partitions of
@@ -190,6 +196,11 @@ Phases, each fatal on failure:
    roofline row's bottleneck the one ``analyze_cell`` gives). Its wall
    time and the script's total are printed.
 
+Each stage of phases 3 and 5-13 counts the kernels' launches from zero;
+``get_resolve``'s must equal the stage's ``get_batch`` calls on device
+views on the card (one launch a get batch). The launches the JSON lists
+are those stages' sums, without phase 4's timing and checking calls.
+
 The last lines are one JSON object listing the kernels, the card's name
 and power limit from nvidia-smi, and ``{"ok": true, "device": ...}``.
 The script exits non-zero, printing no result, where CUDA is absent or
@@ -339,11 +350,17 @@ INT32_LANES_PER_SM = 64  # Hopper SM: 4 partitions x 16 INT32 lanes (H100 whitep
 REPLACES = {
     "anchor_search": "src/repro/kernels/anchor_search.py:46",
     "selector_decode": "src/repro/kernels/selector_decode.py:45",
+    "get_resolve": "none: the ops XLA fused after the decode in src/repro/kernels/ops.py:173",
 }
 SOURCES = {
     "anchor_search": "src/repro_torch/csrc/anchor_search.cu",
     "selector_decode": "src/repro_torch/csrc/selector_decode.cu",
+    "get_resolve": "src/repro_torch/csrc/get_resolve.cu",
 }
+# get_resolve's views: (VW, tables of ENTRIES keys) as YCSB C's 120-B and
+# 1-KB records; the query counts get_batch pads to
+RESOLVE_VIEWS = ((30, 4), (250, 2))
+RESOLVE_QS = (64, 256, 16_384)
 
 
 def log(*a):
@@ -666,6 +683,7 @@ def phase_main(rng, parts, domains, oracles):
     from repro_torch.db import clock
     from repro_torch.kernels import anchor_search as AS
     from repro_torch.kernels import device_view as DV
+    from repro_torch.kernels import get_resolve as GR
     from repro_torch.kernels import ops
     from repro_torch.kernels import selector_decode as SD
     from repro_torch.obs.events import EventLog
@@ -680,8 +698,9 @@ def phase_main(rng, parts, domains, oracles):
     AS.anchor_search.launches = 0
     AS.anchor_le_count.launches = 0
     SD.selector_decode.launches = 0
+    GR.get_resolve.launches = 0
     syncs0 = DV.SYNCS
-    batches = 0
+    batches = gets = 0
 
     t0 = time.perf_counter()
     views = [mgr.view_for(p) for p in parts]
@@ -707,6 +726,7 @@ def phase_main(rng, parts, domains, oracles):
             with sync_debug_error():
                 found, vals = mgr.get_batch(views[i], kq, NOW)
             batches += 1
+            gets += 1
             f_o, v_o = oracle_get(oracles[i], kq)
             check(np.array_equal(found, f_o), f"get_batch {qn}: found differs (partition {i})")
             check(np.array_equal(vals[found], v_o[found]), f"get_batch {qn}: values differ")
@@ -766,8 +786,9 @@ def phase_main(rng, parts, domains, oracles):
     syncs = DV.SYNCS - syncs0
     fallback = _metric(reg, "device_fallback_total")
     launches = {"anchor_search": AS.anchor_search.launches,
-                "selector_decode": SD.selector_decode.launches}
-    log(f"[main] launches {launches}; syncs {syncs} for {batches} batches; "
+                "selector_decode": SD.selector_decode.launches,
+                "get_resolve": GR.get_resolve.launches}
+    log(f"[main] launches {launches}; get batches {gets}; syncs {syncs} for {batches} batches; "
         f"device_fallback_total {fallback}; device_batches "
         f"{_metric(reg, 'device_batches')}; device_rows_gathered "
         f"{_metric(reg, 'device_rows_gathered')}; events "
@@ -775,6 +796,8 @@ def phase_main(rng, parts, domains, oracles):
     check(syncs == batches, f"{syncs} syncs for {batches} batches")
     check(fallback == 0, "device_fallback_total != 0")
     check(all(n > 0 for n in launches.values()), f"a kernel never launched: {launches}")
+    check(launches["get_resolve"] == gets,
+          f"get_resolve launched {launches['get_resolve']} times for {gets} get batches")
     return mgr, views, starts, launches
 
 
@@ -985,6 +1008,104 @@ def phase_end_to_end(rng, mgr, views, domains, starts, card):
             f"{card}: scan_windows with_vals={with_vals}",
             lambda: mgr.scan_windows(views[0], starts[0], SCAN_WIDTH, NOW,
                                      with_vals=with_vals), 10)
+
+
+def host_us(fn, n: int = 50) -> float:
+    """Host µs a call of ``fn`` from its enqueue to the card's end: what a
+    batch's caller waits, launch overheads included."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+        torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / n * 1e6
+
+
+def get_composition(remix, runset, exp, q, now, g, dec):
+    """What get_resolve replaced: ``ops.get_live``'s eager torch after the
+    seek's decode (the lower bound in the group, a one-slot window through
+    a second selector_decode, the liveness and key compare); (found, vals,
+    run, row)."""
+    import torch
+
+    from repro_torch.core import keys as CK
+    from repro_torch.core.query import first_ge_slot
+    from repro_torch.kernels import ops
+
+    runid, absidx, _, pad = dec
+    keys, _, _, _ = runset.gather(runid, absidx)
+    keys = torch.where(pad[..., None], CK.INF_WORD, keys)
+    s = first_ge_slot(~CK.key_lt(keys, q[:, None, :]), pad, remix.d)
+    pos = torch.clamp(g * remix.d + s, max=remix.n_slots)
+    keys, vals, valid, rid, row = ops.gather_view_live(remix, runset, exp, pos, now, 1)
+    found = valid[:, 0] & CK.key_eq(keys[:, 0], q)
+    return found, vals[:, 0], rid[:, 0], row[:, 0]
+
+
+def phase_get_resolve(rng, card) -> dict:
+    """get_resolve on views shaped like the benchmark's records
+    (``RESOLVE_VIEWS``) at ``RESOLVE_QS`` queries as get_batch uploads
+    them: bit for bit against its plain version and the composition it
+    replaced, then timed beside that composition and its bytes bound."""
+    import torch
+
+    from repro_torch.db.partition import Partition, Table
+    from repro_torch.kernels import anchor_search as AS
+    from repro_torch.kernels import get_resolve as GR
+    from repro_torch.kernels import selector_decode as SD
+    from repro_torch.kernels.device_view import DeviceViewManager
+
+    floor = launch_floor(card)
+    mgr = DeviceViewManager(1 << 30, device=DEV)
+    shapes = []
+    for vw, runs in RESOLVE_VIEWS:
+        domain = np.sort(rng.choice(1 << 36, ENTRIES * runs * 3 // 4, replace=False)).astype(np.uint64)
+        tables = []
+        for i in range(runs):
+            ttl = rng.random(ENTRIES) < 0.10
+            tables.append(Table(
+                keys=np.sort(rng.choice(domain, ENTRIES, replace=False)),
+                seq=(np.arange(ENTRIES) + i * ENTRIES + 1).astype(np.uint32),
+                vals=rng.integers(0, 2**32, (ENTRIES, vw), dtype=np.uint64).astype(np.uint32),
+                tomb=rng.random(ENTRIES) < 0.05,
+                exp=np.where(ttl, NOW + rng.integers(-999, 1000, ENTRIES), 0).astype(np.uint32)))
+        remix, runset, exp = Partition(0, tables, d=D, device=DEV).device_index()
+        sel = remix.selectors.reshape(remix.g, remix.d)
+        for qn in RESOLVE_QS:
+            q = mgr._queries(probe(rng, domain, qn))
+            g = AS.anchor_search(remix.anchors, q)
+            dec = SD.selector_decode(sel, remix.cursors, rows=g)
+            args = (q, g, *dec, runset.keys, runset.vals, runset.tomb, exp, sel,
+                    remix.cursors, NOW)
+            label = f"VW={vw}, G={remix.g}, R={remix.r}, Q={qn}"
+            got = GR.get_resolve(*args)
+            check(torch.equal(got, GR.get_resolve_plain(*args)),
+                  f"get_resolve differs from its plain version ({label})")
+            f, v, rid, row = get_composition(remix, runset, exp, q, NOW, g, dec)
+            check(torch.equal(got[:, 0] != 0, f) and torch.equal(got[:, 1], rid)
+                  and torch.equal(got[:, 2], row) and torch.equal(got[:, 3:], v),
+                  f"get_resolve differs from the composition it replaced ({label})")
+            kern = lambda: GR.get_resolve(*args)  # noqa: E731
+            comp = lambda: get_composition(remix, runset, exp, q, NOW, g, dec)  # noqa: E731
+            ms, comp_ms = time_pair(kern, comp, 20 if qn > GET_SMALL else 50)
+            us, comp_us = host_us(kern), host_us(comp)
+            # queries and group ids, the decoded rows (10 bytes a slot), the
+            # D slot keys, the answer's tomb, expiry, key and values; the
+            # packed output. Operations: a KW-word compare and 4 more a slot.
+            b, by = bound_ms(
+                qn * (KW * 4 + 4) + qn * D * (10 + KW * 4) + qn * (5 + (KW + vw) * 4)
+                + qn * (3 + vw) * 4, qn * D * (2 * KW + 4))
+            log(f"[resolve] {card}: get_resolve ({label}): found {int(got[:, 0].sum())}; "
+                f"host {us:.1f} us a call to completion, the composition {comp_us:.1f} us")
+            shapes.append(dict(shape=f"views like YCSB C: {label}", ms=ms, plain_ms=comp_ms,
+                               bound_ms=b, bound_by=by, library_ms=None,
+                               host_us=us, plain_host_us=comp_us))
+    log_timings(card, "get_resolve (plain: the composition it replaced)", shapes, floor)
+    return dict(shapes[0], name="get_resolve", shapes=shapes, launch_floor_ms=floor,
+                max_abs_err=0)
 
 
 # ---------------------------------------------------------------- phase 5
@@ -1203,9 +1324,7 @@ def phase_index_tier(rng, root, card):
     ``view_kernels`` checks the kernels on)."""
     import torch
 
-    from repro_torch.kernels import anchor_search as AS
     from repro_torch.kernels import device_view as DV
-    from repro_torch.kernels import selector_decode as SD
     from repro_torch.obs.events import EventLog
     from repro_torch.obs.metrics import MetricsRegistry
 
@@ -1213,8 +1332,8 @@ def phase_index_tier(rng, root, card):
     reg, ev = MetricsRegistry(), EventLog(capacity=256)
     mgr = DV.DeviceViewManager(DEVICE_BUDGET, slice_width=SLICE_WIDTH,
                                registry=reg, events=ev, device=DEV)
-    AS.anchor_search.launches = 0
-    SD.selector_decode.launches = 0
+    _set_launch_counts({k: 0 for k in _launch_counts()})
+    VIEW_GETS[0] = 0
     driven = []
     for i, p in enumerate(parts):
         est = (p.device_view_bytes(True), p.device_view_bytes(False))
@@ -1274,14 +1393,15 @@ def phase_index_tier(rng, root, card):
                      SCAN_WIDTH) for k in range(-(-SCAN_Q // SLICE_WIDTH))]
         driven.append((v, batches))
     fallback = _metric(reg, "device_fallback_total")
-    launches = {"anchor_search": AS.anchor_search.launches,
-                "selector_decode": SD.selector_decode.launches}
-    log(f"[index] launches {launches}; device_fallback_total {fallback}; events "
+    launches, gets = _launch_counts(), VIEW_GETS[0]
+    log(f"[index] launches {launches}; get batches {gets}; device_fallback_total {fallback}; events "
         f"{[(e.kind, e.fields['lo'], e.fields.get('reason')) for e in ev.list()]}; "
         f"answers equal to the oracle; syncs 1 per get, 1 per scan without values, "
         f"{-(-SCAN_Q // SLICE_WIDTH)} per scan with values")
     check(fallback == 0, "device_fallback_total != 0")
     check(all(n > 0 for n in launches.values()), f"a kernel never launched: {launches}")
+    check(launches["get_resolve"] == gets,
+          f"get_resolve launched {launches['get_resolve']} times for {gets} get batches")
     return launches, mgr, driven
 
 
@@ -1489,28 +1609,61 @@ def _sync_rule(db, parts) -> str | None:
     return None
 
 
-def _launch_counts():
+def _kernel_fns():
     from repro_torch.kernels import anchor_search as AS
+    from repro_torch.kernels import get_resolve as GR
     from repro_torch.kernels import selector_decode as SD
 
-    return {"anchor_search": AS.anchor_search.launches,
-            "selector_decode": SD.selector_decode.launches}
+    return {"anchor_search": AS.anchor_search, "selector_decode": SD.selector_decode,
+            "get_resolve": GR.get_resolve}
+
+
+def _launch_counts():
+    return {k: f.launches for k, f in _kernel_fns().items()}
+
+
+def _set_launch_counts(counts):
+    for k, f in _kernel_fns().items():
+        f.launches = counts[k]
+
+
+# device-view get batches on the card since the last reset: every one ends
+# in one get_resolve launch (``count_view_gets``)
+VIEW_GETS = [0]
+_VIEW_GETS_LOCK = threading.Lock()
+
+
+def count_view_gets():
+    """Count each ``DeviceViewManager.get_batch`` on a view on the card into
+    ``VIEW_GETS``, from whichever thread the store calls it."""
+    from repro_torch.kernels import device_view as DV
+
+    inner = DV.DeviceViewManager.get_batch
+
+    def get_batch(self, dv, keys_u64, now):
+        if dv.remix.anchors.is_cuda:
+            with _VIEW_GETS_LOCK:
+                VIEW_GETS[0] += 1
+        return inner(self, dv, keys_u64, now)
+
+    DV.DeviceViewManager.get_batch = get_batch
 
 
 def run_counted(tag, stage, fn, launches, require=True):
-    """``fn()`` with both kernels' launch counts set to 0 just before it and
-    read just after (before any kernel check launches more), added into
-    ``launches``; fails if ``require`` and a kernel never launched."""
-    from repro_torch.kernels import anchor_search as AS
-    from repro_torch.kernels import selector_decode as SD
-
-    AS.anchor_search.launches = 0
-    SD.selector_decode.launches = 0
+    """``fn()`` with the kernels' launch counts and ``VIEW_GETS`` set to 0
+    just before it and read just after (before any kernel check launches
+    more), added into ``launches``; fails if get_resolve's launches are
+    not the stage's device-view get batches, or if ``require`` and the
+    seek's two kernels never launched."""
+    _set_launch_counts({k: 0 for k in _launch_counts()})
+    VIEW_GETS[0] = 0
     out = fn()
-    got = _launch_counts()
-    log(f"[{tag}] {stage}: kernel launches {got}")
-    check(not require or all(n > 0 for n in got.values()),
+    got, gets = _launch_counts(), VIEW_GETS[0]
+    log(f"[{tag}] {stage}: kernel launches {got}; device-view get batches {gets}")
+    check(not require or all(got[k] > 0 for k in ("anchor_search", "selector_decode")),
           f"{stage}: a kernel never launched: {got}")
+    check(got["get_resolve"] == gets,
+          f"{stage}: get_resolve launched {got['get_resolve']} times for {gets} get batches")
     for k, n in got.items():
         launches[k] += n
     return out
@@ -2655,8 +2808,6 @@ def _paper_observer(card, shapes, err, timed=PAPER_TIMED, log_tag="paper"):
     a 64-start scan_batch timed beside one merging scan per start, the
     reference's algorithm."""
     from repro_torch.bench.common import sync
-    from repro_torch.kernels import anchor_search as AS
-    from repro_torch.kernels import selector_decode as SD
 
     def observe(tag, stores, batches):
         before = _launch_counts()
@@ -2668,8 +2819,7 @@ def _paper_observer(card, shapes, err, timed=PAPER_TIMED, log_tag="paper"):
         else:
             got, e = {k: [] for k in shapes}, hold_views(mgr, driven, f"{tag} RemixDB", log_tag)
         del mgr, driven
-        AS.anchor_search.launches = before["anchor_search"]
-        SD.selector_decode.launches = before["selector_decode"]
+        _set_launch_counts(before)
         for k in shapes:
             shapes[k] += got[k]
             err[k] = max(err[k], e[k])
@@ -2713,8 +2863,8 @@ def phase_paper(card) -> tuple[dict, dict, dict]:
     t_phase = time.perf_counter()
     csv = common.CSV(profile=True)
     launches = {k: 0 for k in _launch_counts()}
-    shapes = {k: [] for k in launches}
-    err = {k: 0 for k in launches}
+    shapes = {"anchor_search": [], "selector_decode": []}  # held on the views' operands
+    err = {k: 0 for k in shapes}
     observe = _paper_observer(card, shapes, err) if DEV == "cuda" else None
     log(f"[paper] {card}: fig11-13 at {PAPER_N_PER_TABLE} keys per table, "
         f"fig14-17 at scale {PAPER_SCALE}; rows: name,us_per_call,derived")
@@ -3360,7 +3510,7 @@ def phase_train(rng, card):
         cfg = dataclasses.replace(reduced(get_config(arch)), dtype="float32")
         _train_card_against_cpu(cfg, f"{arch} ({cfg.family}, reduced, float32)", card,
                                 TRAIN_F32_LOSS_ATOL, TRAIN_F32_GRAD_RTOL)
-    launches = {"anchor_search": 0, "selector_decode": 0}
+    launches = {k: 0 for k in _launch_counts()}
     with tempfile.TemporaryDirectory() as root:
         measured = _train_full_width(card, root, launches)
         _train_launcher_resume(card, root, launches)
@@ -3522,7 +3672,7 @@ def phase_launch(card, measured):
     run's records."""
     t_phase = time.perf_counter()
     procs = _dryrun_cells()  # (b) runs beside (a) and (c)
-    launches = {"anchor_search": 0, "selector_decode": 0}
+    launches = {k: 0 for k in _launch_counts()}
     try:
         run_counted("launch", "the dry run's counting on phase 10's step",
                     lambda: _count_train_step(card, measured), launches, require=False)
@@ -3717,8 +3867,8 @@ def phase_drivers(card) -> tuple[dict, dict, dict]:
 
     t_phase = time.perf_counter()
     launches = {k: 0 for k in _launch_counts()}
-    shapes = {k: [] for k in launches}
-    err = {k: 0 for k in launches}
+    shapes = {"anchor_search": [], "selector_decode": []}  # held on the views' operands
+    err = {k: 0 for k in shapes}
     observe = (_paper_observer(card, shapes, err, timed=("kernels",), log_tag="drivers")
                if DEV == "cuda" else None)
     records = {}
@@ -3821,6 +3971,7 @@ def main() -> int:
     def mark(name):
         log(f"[time] {name} ended at {time.perf_counter() - t_script:.1f} s")
 
+    count_view_gets()
     try:
         phase_build()
         err = phase_kernels(rng)
@@ -3829,6 +3980,7 @@ def main() -> int:
         mgr, views, starts, launches = phase_main(rng, parts, domains, oracles)
         timings = phase_timings(rng, views, domains, starts, err, card)
         phase_end_to_end(rng, mgr, views, domains, starts, card)
+        resolve = phase_get_resolve(rng, card)
         mark("phases 3-4")
         with tempfile.TemporaryDirectory() as root:
             idx_launches, idx_mgr, driven = phase_index_tier(rng, root, card)
@@ -3885,6 +4037,11 @@ def main() -> int:
              shapes=t["shapes"])
         for t in timings
     ]
+    kernels.append(dict(
+        {k: resolve[k] for k in ("name", "max_abs_err", "ms", "plain_ms", "bound_ms",
+                                 "bound_by", "library_ms", "launch_floor_ms", "shapes")},
+        route="cuda", source=SOURCES["get_resolve"], replaces=REPLACES["get_resolve"],
+        launches=launches["get_resolve"]))
     log(json.dumps({"kernels": kernels}))
     log(card)
     log(json.dumps({"ok": True, "device": {

@@ -122,12 +122,15 @@ def _build(sources: list[Path], out: Path) -> str:
     return "".join(log)
 
 
-_VP, _I = ctypes.c_void_p, ctypes.c_int
+_VP, _I, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
 _SIGNATURES = {
     # (anchors, queries, out, g, q, kw, stride, sms, minus_one, stream)
     "remix_anchor_search": [_VP, _VP, _VP, _I, _I, _I, _I, _I, _I, _VP],
     # (selectors, cursors, rows, runid, absidx, newest, pad, n, d, r, sel_u8, sms, stream)
     "remix_selector_decode": [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _VP],
+    # (queries, g, runid, absidx, newest, pad, keys, vals, tomb, exp, selectors,
+    #  cursors, out, q, d, kw, vw, r, nmax, rc, groups, now, stream)
+    "remix_get_resolve": [_VP] * 13 + [_I] * 8 + [_U, _VP],
 }
 
 

@@ -2,6 +2,7 @@
 
   - selector_decode: in-group occurrence decode (paper §3.2)
   - anchor_search:   batched anchor index search
+  - get_resolve:     a device-view get after the seek's decode, one launch
   - ops:             compositions of the kernels into seek/get/scan
   - device_view:     device residency manager + batched reads
 
@@ -13,6 +14,7 @@ the modules, not their wrappers, so those counts stay reachable.
 from repro_torch.kernels import (  # noqa: F401
     anchor_search,
     device_view,
+    get_resolve,
     ops,
     ref,
     selector_decode,

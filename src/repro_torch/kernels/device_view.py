@@ -7,8 +7,9 @@ sections as tensors on the card, in one of two residency tiers:
 
 - ``full``  — keys, values, tombstones and TTL expiry words all resident:
   a batched get/scan is one kernel composition (anchor search → selector
-  decode → run/row resolve → window emission → key/value gather) with
-  **exactly one device→host synchronisation**, the result fetch.
+  decode → run/row resolve → window emission → key/value gather; a get
+  does all after the decode in the ``get_resolve`` kernel) with **exactly
+  one device→host synchronisation**, the result fetch.
 - ``index`` — everything but the value sections resident (file-backed
   partitions whose full view exceeds the budget). The device resolves
   each batch's (run, row) coordinates; the host gathers the values
@@ -273,36 +274,35 @@ class DeviceViewManager:
     def _queries(self, keys_u64: np.ndarray) -> torch.Tensor:
         """(Q,) u64 keys → (pow2-padded Q, 2) int32 words on the device;
         padded queries are key 0."""
-        q = len(keys_u64)
-        kq = np.pad(keys_u64, (0, _pow2pad(q) - q))
+        kq = np.zeros(_pow2pad(len(keys_u64)), np.uint64)
+        kq[: len(keys_u64)] = keys_u64
         return _upload(CK.pack_u64(kq).view(np.int32), self.device)
 
     def get_batch(self, dv: DeviceView, keys_u64, now) -> tuple:
-        """Batched point gets: one kernel composition + one result fetch.
-        Full tier: the fetch carries the values. Index tier: it carries
-        (found, run, row) and the values come from the host block cache.
+        """Batched point gets: three launches and one result fetch, a
+        packed (found, run, row, values) row a query. Full tier: the fetch
+        carries the values. Index tier: it carries (found, run, row) and the
+        values come from the host block cache.
         Returns (found (Q,) bool, vals (Q, VW) uint32)."""
         keys_u64 = np.asarray(keys_u64, np.uint64)
         q = len(keys_u64)
         with tracing.span("view.dispatch"):
-            fd, vd, rid_d, row_d = ops.get_live(
+            out = ops.get_live_packed(
                 dv.remix, dv.runset, dv.exp, self._queries(keys_u64), int(now)
             )
-            out = (fd, vd) if dv.tier == "full" else (fd, rid_d, row_d)
-            host, ev = _enqueue_fetch(*out)
+            host, ev = _enqueue_fetch(out)
         self._c_batches.inc()
+        (res,) = _fetch(host, ev)  # THE one host sync
+        res = res[:q]
+        found = res[:, 0] != 0
+        self._c_rows.inc(int(found.sum()))
         if dv.tier == "full":
-            found, vals = _fetch(host, ev)  # THE one host sync
-            found, vals = found[:q], vals[:q].view(np.uint32)
-            self._c_rows.inc(int(found.sum()))
-            return found, vals
-        found, rid, row = _fetch(host, ev)
-        found, rid, row = found[:q], rid[:q], row[:q].astype(np.int64)
+            return found, res[:, 3:].view(np.uint32)
+        rid, row = res[:, 1], res[:, 2].astype(np.int64)
         vals = np.zeros((q, dv.vw), np.uint32)
         for r in np.unique(rid[found]):
             m = found & (rid == r)
             vals[m] = dv.tables[r].rows_scattered("vals", row[m])
-        self._c_rows.inc(int(found.sum()))
         return found, vals
 
     def scan_windows(

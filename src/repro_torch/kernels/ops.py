@@ -1,8 +1,10 @@
-"""Full REMIX operations composed from the two kernels.
+"""Full REMIX operations composed from the kernels.
 
 The kernels cover the anchor search and the selector occurrence decode;
-the decode reads the group tables through group ids itself, and plain
-torch indexing does the run gathers after it, as the JAX package left
+the decode reads the group tables through group ids itself. A get on a
+device view (``get_live_packed``) ends in a third kernel, ``get_resolve``,
+which does everything after the seek's decode; elsewhere plain torch
+indexing does the run gathers after the decode, as the JAX package left
 them to XLA. Nothing here reads a value back to the host, so a batch on
 the card runs with no synchronisation until its caller fetches the
 result.
@@ -17,6 +19,7 @@ from repro_torch.core.remix import Remix
 from repro_torch.core.runs import RunSet
 from repro_torch.device import ordered, ordered_scalar
 from repro_torch.kernels.anchor_search import anchor_search
+from repro_torch.kernels.get_resolve import get_resolve
 from repro_torch.kernels.selector_decode import selector_decode
 
 
@@ -131,10 +134,17 @@ def scan_live(remix, runset, exp, queries, now: int, width: int):
     return (*gather_view_live(remix, runset, exp, pos, now, width), pos)
 
 
+def get_live_packed(remix, runset, exp, queries, now: int) -> torch.Tensor:
+    """``get_live`` as one (Q, 3 + VW) int32 tensor: found, run, row, then
+    the value words; three launches (anchor_search, selector_decode,
+    get_resolve), so that a caller fetches a batch with one copy."""
+    sel = remix.selectors.reshape(remix.g, remix.d)
+    g = anchor_search(remix.anchors, queries)
+    runid, absidx, newest, pad = selector_decode(sel, remix.cursors, rows=g)
+    return get_resolve(queries, g, runid, absidx, newest, pad, runset.keys,
+                       runset.vals, runset.tomb, exp, sel, remix.cursors, now)
+
+
 def get_live(remix, runset, exp, queries, now: int):
-    pos = seek(remix, runset, queries)
-    keys, vals, valid, runid, absidx = gather_view_live(
-        remix, runset, exp, pos, now, 1
-    )
-    found = valid[:, 0] & K.key_eq(keys[:, 0], queries)
-    return found, vals[:, 0], runid[:, 0], absidx[:, 0]
+    out = get_live_packed(remix, runset, exp, queries, now)
+    return out[:, 0] != 0, out[:, 3:], out[:, 1], out[:, 2]

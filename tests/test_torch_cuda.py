@@ -14,6 +14,7 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.device import as_words, sm_count  # noqa: E402
 from repro_torch.kernels import anchor_search as TA  # noqa: E402
+from repro_torch.kernels import get_resolve as TG  # noqa: E402
 from repro_torch.kernels import selector_decode as TS  # noqa: E402
 
 pytestmark = pytest.mark.cuda
@@ -106,6 +107,107 @@ def test_selector_decode_rows_match_plain(card, d):
             assert TS.selector_decode.launches == n0 + 1
             for x, y in zip(got, TS.selector_decode_plain(ts, tc, rows=tr)):
                 assert torch.equal(x, y)
+
+
+def _ttl_partition(rng, domain, vw, d, dev, n=1500, runs=4):
+    """A partition of ``runs`` overlapping tables of ``n`` keys from
+    ``domain`` with tombstones, TTL expiries at 90, 100 and 110 and an
+    excised span, on ``dev``."""
+    from repro_torch.db.partition import Partition, Table
+
+    tables = []
+    for i in range(runs):
+        keys = np.sort(rng.choice(domain, n, replace=False))
+        exp = np.where(rng.random(n) < 0.2, rng.choice([90, 100, 110], n), 0)
+        tables.append(Table(
+            keys=keys, seq=(np.arange(n) + i * n + 1).astype(np.uint32),
+            vals=rng.integers(0, 2**32, (n, vw), dtype=np.uint64).astype(np.uint32),
+            tomb=rng.random(n) < 0.05, exp=exp.astype(np.uint32)))
+    p = Partition(0, tables, d=d, device=dev)
+    p.attach_excised(int(domain[100]), int(domain[300]), seq=10**6)
+    return p
+
+
+@pytest.mark.parametrize("d", [8, 16, 32, 64])
+def test_get_resolve_matches_plain(card, d):
+    """get_resolve against its plain version on a partition's device views,
+    bit for bit on all outputs: VW 1, 30 and 250 (and the index tier's
+    1-word dummy values); 8 to 65,536 queries as get_batch uploads them,
+    padded to a power of two with key 0, with keys past the last one, at
+    ``now`` = 100, where some rows expire exactly."""
+    from repro_torch.kernels import device_view as DV
+
+    rng = np.random.default_rng(200 + d)
+    domain = np.arange(1, 5000, dtype=np.uint64) * np.uint64(977)
+    mgr = DV.DeviceViewManager(1 << 30, device=card)
+    edges = np.array([0, 2**64 - 1, domain[-1] + 1], np.uint64)
+    found = []
+    for vw in (1, 30, 250):
+        p = _ttl_partition(rng, domain, vw, d, card)
+        for with_vals in (True, False) if vw == 30 else (True,):
+            remix, runset, exp = p.device_index(with_vals=with_vals)
+            assert runset.vw == (vw if with_vals else 1)
+            sel = remix.selectors.reshape(remix.g, remix.d)
+            for qn in (8, 64, 256, 65_536):
+                keys = np.concatenate([domain[rng.integers(0, len(domain), qn - 5)], edges])
+                tq = mgr._queries(keys)
+                assert tq.shape[0] == qn
+                g = TA.anchor_search(remix.anchors, tq)
+                args = (tq, g, *TS.selector_decode(sel, remix.cursors, rows=g), runset.keys,
+                        runset.vals, runset.tomb, exp, sel, remix.cursors, 100)
+                n0 = TG.get_resolve.launches
+                got = TG.get_resolve(*args)
+                assert TG.get_resolve.launches == n0 + 1
+                want = TG.get_resolve_plain(*args)
+                assert got.shape == (qn, 3 + runset.vw)
+                assert torch.equal(got, want), (vw, with_vals, qn)
+                found.append(want[:, 0].cpu())
+    found = torch.cat(found)
+    assert bool(found.any()) and not bool(found.all())
+
+
+def test_get_batch_is_three_launches_and_one_sync(card):
+    """One full-tier get_batch: one launch each of anchor_search,
+    selector_decode and get_resolve, at most 20 aten ops, one result
+    fetch and no other synchronisation; the CPU's answers."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from repro_torch.kernels import device_view as DV
+
+    class Ops(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.names = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.names.append(str(func))
+            return func(*args, **(kwargs or {}))
+
+    domain = np.arange(1, 5000, dtype=np.uint64) * np.uint64(977)
+    keys = domain[np.random.default_rng(8).integers(0, len(domain), 200)]
+    answers = []
+    for dev in ("cpu", card):
+        p = _ttl_partition(np.random.default_rng(7), domain, 30, 32, dev)
+        mgr = DV.DeviceViewManager(1 << 30, device=dev)
+        v = mgr.view_for(p)
+        assert v.tier == "full"
+        answers.append(mgr.get_batch(v, keys, 100))  # the card's builds the library
+    launches = lambda: (TA.anchor_search.launches, TS.selector_decode.launches,  # noqa: E731
+                        TG.get_resolve.launches)
+    n0, s0 = launches(), DV.SYNCS
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        with Ops() as ops:
+            found, vals = mgr.get_batch(v, keys, 100)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert tuple(b - a for a, b in zip(n0, launches())) == (1, 1, 1)
+    assert len(ops.names) <= 20, ops.names
+    assert DV.SYNCS - s0 == 1
+    for f, x in answers:
+        np.testing.assert_array_equal(found, f)
+        np.testing.assert_array_equal(vals, x)
+    assert found.any() and not found.all()
 
 
 def test_device_view_on_card_matches_cpu(card):

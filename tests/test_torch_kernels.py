@@ -23,10 +23,12 @@ from repro.kernels import ops as RO  # noqa: E402
 from repro.kernels import ref as RF  # noqa: E402
 from repro.kernels.selector_decode import selector_decode as ref_selector_decode  # noqa: E402
 from repro_torch import device as TD  # noqa: E402
+from repro_torch.core import keys as TK  # noqa: E402
 from repro_torch.core import remix as TR  # noqa: E402
 from repro_torch.core import runs as TRu  # noqa: E402
 from repro_torch.device import as_words  # noqa: E402
 from repro_torch.kernels import anchor_search as TA  # noqa: E402
+from repro_torch.kernels import get_resolve as TG  # noqa: E402
 from repro_torch.kernels import ops as TO  # noqa: E402
 from repro_torch.kernels import ref as TF  # noqa: E402
 from repro_torch.kernels import selector_decode as TS  # noqa: E402
@@ -216,6 +218,70 @@ def test_live_ops_match_reference_ops(now):
         eq(a, b)
 
 
+def _get_live_composition(remix, runset, exp, queries, now):
+    """``ops.get_live`` as it was composed before the get_resolve kernel:
+    the oracle of get_resolve's plain version."""
+    pos = TO.seek(remix, runset, queries)
+    keys, vals, valid, runid, absidx = TO.gather_view_live(remix, runset, exp, pos, now, 1)
+    found = valid[:, 0] & TK.key_eq(keys[:, 0], queries)
+    return found, vals[:, 0], runid[:, 0], absidx[:, 0]
+
+
+@pytest.mark.parametrize("now", [1_000, 3_000_000_000])
+@pytest.mark.parametrize("d", [8, 16, 32, 64])
+def test_get_resolve_plain_matches_composition_and_pallas(d, now):
+    """get_resolve's plain version, fed anchor_search and selector_decode
+    as ``ops.get_live_packed`` feeds it, against the composition it
+    replaced and the JAX package's ``get_live``: found, values (of missed
+    queries too), runs and rows. The queries are every key of a domain the
+    runs draw from, 0 (below the first key) and the two largest keys
+    (past the last: pos = n_slots)."""
+    rng = np.random.default_rng(d * 31 + now % 89)
+    space = 300
+    data = []
+    for i in range(4):
+        with np.errstate(over="ignore"):
+            k = np.sort(np.asarray(rng.choice(np.arange(1, space + 1), 120, replace=False),
+                                   np.uint64) * MULT)
+        vals = rng.integers(0, 2**32, size=(120, 3), dtype=np.uint64).astype(np.uint32)
+        data.append((k, vals, (np.arange(120) + i * 120 + 1).astype(np.uint32),
+                     rng.random(120) < 0.15))
+    rm, rs = RR.build_remix([RRu.make_run(k, v, seq=s, tomb=t) for k, v, s, t in data], d=d)
+    tm, ts = TR.build_remix([TRu.make_run(k, v, seq=s, tomb=t, device=CPU)
+                             for k, v, s, t in data], d=d)
+    with np.errstate(over="ignore"):
+        q = np.concatenate([np.arange(1, space + 1, dtype=np.uint64) * MULT,
+                            np.array([0, 2**64 - 2, 2**64 - 1], np.uint64)])
+    qk = RK.pack_u64(q)
+    jq, tq = jnp.asarray(qk), as_words(qk, CPU)
+    je, te = _exp(rng, rs, now)
+
+    want = _get_live_composition(tm, ts, te, tq, now)
+    for a, b in zip(RO.get_live(rm, rs, je, jq, jnp.uint32(now), interpret=True), want):
+        eq(a, b)
+    sel = tm.selectors.reshape(tm.g, d)
+    g = TA.anchor_search(tm.anchors, tq)
+    out = TG.get_resolve(tq, g, *TS.selector_decode(sel, tm.cursors, rows=g), ts.keys,
+                         ts.vals, ts.tomb, te, sel, tm.cursors, now)
+    assert out.dtype == torch.int32 and out.shape == (len(q), 3 + ts.vw)
+    for name, w, x in zip(("found", "vals", "run", "row"), want,
+                          (out[:, 0] != 0, out[:, 3:], out[:, 1], out[:, 2])):
+        eq(w, x, name)
+
+    # the cases the queries must reach
+    found, _, run, row = (x.numpy() for x in want)
+    pos = TO.seek(tm, ts, tq).numpy()
+    rr, ii = run.clip(0, ts.r - 1), row.clip(0, ts.nmax - 1)
+    hit = (ts.keys.numpy()[rr, ii] == tq.numpy()).all(axis=1) & (pos < tm.n_slots)
+    placeholder_before = tm.selectors.numpy()[np.maximum(pos - 1, 0)] == 127
+    assert pos[-3] == 0 and (pos[-2:] == tm.n_slots).all()
+    assert (hit & ts.tomb.numpy()[rr, ii]).any()  # tombstoned
+    assert (hit & (te.numpy()[rr, ii].view(np.uint32) == now)).any()  # expiring at now
+    assert (hit & (pos % d == 0) & (pos > 0)).any()  # group heads
+    assert (hit & placeholder_before & (pos > 0)).any()  # just after a placeholder
+    assert found.any() and (hit & ~found).any()
+
+
 def test_gather_view_ops_match_reference_ops():
     rng = np.random.default_rng(4)
     (rm, rs), (tm, ts), _, _ = _indexes(rng, 16)
@@ -236,8 +302,9 @@ def test_cpu_tensors_take_the_plain_path(monkeypatch):
     monkeypatch.setattr(TD, "kernel_library", no_library)
     monkeypatch.setattr(TA, "kernel_library", no_library)
     monkeypatch.setattr(TS, "kernel_library", no_library)
+    monkeypatch.setattr(TG, "kernel_library", no_library)
     counts = (TA.anchor_search.launches, TA.anchor_le_count.launches,
-              TS.selector_decode.launches)
+              TS.selector_decode.launches, TG.get_resolve.launches)
     rng = np.random.default_rng(1)
     a, q = anchors_and_queries(rng, 40, 2)
     TA.anchor_search(as_words(a, CPU), as_words(q, CPU))
@@ -248,6 +315,7 @@ def test_cpu_tensors_take_the_plain_path(monkeypatch):
                        rows=torch.tensor([3, 0, 3], dtype=torch.int32))
     (_, _), (tm, ts), _, tq = _indexes(rng, 8, r=2, n=40, space=100)
     TO.scan_live(tm, ts, torch.zeros_like(ts.seq), tq, 5, 9)
-    assert counts == (0, 0, 0)
+    TO.get_live_packed(tm, ts, torch.zeros_like(ts.seq), tq, 5)
+    assert counts == (0, 0, 0, 0)
     assert (TA.anchor_search.launches, TA.anchor_le_count.launches,
-            TS.selector_decode.launches) == counts
+            TS.selector_decode.launches, TG.get_resolve.launches) == counts
