@@ -31,6 +31,11 @@ Phases, each fatal on failure:
    queries: bit for bit against its plain version and the eager
    composition it replaced, then timed beside that composition (device
    time as above, and host µs a call to completion) and its bytes bound.
+   Then a store batch's round trip: a 256-key get over 6 views shaped like
+   the benchmark's kv120 store (2^20 keys in 6 partitions of 3 disjoint
+   tables, VW 30), all views in one ``get_batch`` against one call a view,
+   from 1 and from 4 threads at once: wall and thread CPU µs a batch, and
+   syncs a batch; the answers of both against a numpy oracle.
 5. index tier — the deployment the reference store's defaults put on the
    ``index`` residency tier (``src/repro/db/store.py``: 256 MiB device
    budget, 64 MiB block cache, 64-query pipeline slices): 2 partitions of
@@ -64,7 +69,8 @@ Phases, each fatal on failure:
    through the cursor (every scan over the WAL's overlay), then flushed,
    through ``ops.get`` / ``ops.scan``. Per stage: µs per key of get_batch
    (256 and 65,536 keys) and per query of scan_batch (256 × 50), three
-   first/warm pairs; syncs per batch against touched partitions (every
+   first/warm pairs; syncs per batch (one fetch a view-path batch,
+   whatever partitions it touches; every
    view-path batch with its views resident runs under the sync debug
    mode ``error``, its cursor fallbacks under ``warn``, counted apart;
    the legacy path is held to its blocking copies per partition), both
@@ -79,8 +85,8 @@ Phases, each fatal on failure:
    directory. (1) 2^21 keys loaded through ``Cluster.submit`` (as phase
    6, without TTLs), flushed; (2) quiesced fleet reads against the numpy
    oracle (gets of 256 and 65,536 keys; 256 Seek+Next50 scans, some
-   draining into the next shard), three first/warm pairs, syncs per
-   touched partition under ``error``, a profiled 256-key get; (3) three
+   draining into the next shard), three first/warm pairs, one fetch a
+   shard reached under ``error``, a profiled 256-key get; (3) three
    submitter threads of zipfian 64-key batches (a quarter puts) for 5 s,
    a live ``split`` of shard 0 at its middle (aligned), 5 s more: failed
    ops (must be 0), batch latency before / during / first after / after
@@ -197,8 +203,9 @@ Phases, each fatal on failure:
    time and the script's total are printed.
 
 Each stage of phases 3 and 5-13 counts the kernels' launches from zero;
-``get_resolve``'s must equal the stage's ``get_batch`` calls on device
-views on the card (one launch a get batch). The launches the JSON lists
+``get_resolve``'s must equal the views on the card of the stage's
+``get_batch`` calls (one launch a view; a store batch passes all of its
+partitions' views in one call). The launches the JSON lists
 are those stages' sums, without phase 4's timing and checking calls.
 
 The last lines are one JSON object listing the kernels, the card's name
@@ -1108,6 +1115,117 @@ def phase_get_resolve(rng, card) -> dict:
                 max_abs_err=0)
 
 
+# a store batch's round trip (phase 4): kv120's 2^20 keys in 6 partitions of
+# 3 tables (table_cap 65,536 of keys loaded in random order: disjoint),
+# VW 30; a 256-key batch; each thread's calls
+GROUP_PARTS, GROUP_TABLES, GROUP_KEYS, GROUP_VW = 6, 3, 1 << 20, 30
+GROUP_BATCH, GROUP_CALLS, GROUP_THREADS = 256, 300, (1, 4)
+
+
+def phase_grouped(rng, card) -> list[dict]:
+    """A 256-key get over a kv120-shaped store's 6 views: in one
+    ``get_batch`` (one upload, one fetch) against one call a view (six of
+    each), from 1 and 4 threads at once, each thread ``GROUP_CALLS`` batches
+    of its own keys after a warm-up; wall µs a batch (median, p10-p90),
+    thread CPU µs a batch (the mean: the thread clock may tick at 10 ms) and
+    syncs a batch. Every answer against a numpy oracle."""
+    from repro_torch.db.partition import Partition, Table
+    from repro_torch.kernels import device_view as DV
+
+    pool = np.unique(rng.integers(0, 2**64 - 1, GROUP_KEYS + 4096, dtype=np.uint64))
+    keys = np.sort(rng.choice(pool, GROUP_KEYS, replace=False))
+    vals = rng.integers(0, 2**32, (GROUP_KEYS, GROUP_VW), dtype=np.uint64).astype(np.uint32)
+    bounds = np.linspace(0, GROUP_KEYS, GROUP_PARTS + 1).astype(np.int64)
+    los = keys[bounds[:-1]].copy()
+    los[0] = 0
+    mgr = DV.DeviceViewManager(1 << 30, device=DEV)
+    views = []
+    for lo, a, b in zip(los.tolist(), bounds[:-1], bounds[1:]):
+        owner = rng.integers(0, GROUP_TABLES, b - a)  # disjoint tables, as a random load
+        tables = []
+        for t in range(GROUP_TABLES):
+            idx = a + np.flatnonzero(owner == t)
+            tables.append(Table(keys=keys[idx], vals=vals[idx], seq=(idx + 1).astype(np.uint32),
+                                tomb=np.zeros(len(idx), bool),
+                                exp=np.zeros(len(idx), np.uint32)))
+        v = mgr.view_for(Partition(lo, tables, d=D, device=DEV))
+        check(v is not None and v.tier == "full", "a kv120-shaped view is not on the full tier")
+        views.append(v)
+
+    def batch(r):
+        """A batch's keys a view: 7/8 loaded keys, 1/8 drawn from the key space."""
+        q = np.concatenate([keys[r.integers(0, GROUP_KEYS, GROUP_BATCH - GROUP_BATCH // 8)],
+                            r.integers(0, 2**64 - 1, GROUP_BATCH // 8, dtype=np.uint64)])
+        pidx = np.searchsorted(los, q, side="right") - 1
+        return [q[pidx == i] for i in range(GROUP_PARTS)]
+
+    def grouped(segs):
+        return mgr.get_batch(views, segs, NOW)
+
+    def per_view(segs):
+        each = [mgr.get_batch(v, k, NOW) for v, k in zip(views, segs)]
+        return np.concatenate([e[0] for e in each]), np.concatenate([e[1] for e in each])
+
+    def held(segs, found, got, what):
+        q = np.concatenate(segs)
+        i = np.searchsorted(keys, q).clip(max=GROUP_KEYS - 1)
+        hit = keys[i] == q
+        check(np.array_equal(found, hit), f"{what}: found differs from the oracle")
+        check(np.array_equal(got[hit], vals[i[hit]]), f"{what}: values differ from the oracle")
+
+    segs = batch(np.random.default_rng(0))
+    f, x = grouped(segs)
+    fp, xp = per_view(segs)
+    check(np.array_equal(f, fp) and np.array_equal(x, xp),
+          "the grouped get differs from one call a view")
+    held(segs, f, x, "grouped get")
+    rows = []
+    for threads in GROUP_THREADS:
+        for mode, fn in (("grouped", grouped), ("per view", per_view)):
+            go = threading.Barrier(threads)
+            out = [None] * threads
+
+            def worker(t, fn=fn, go=go, out=out):
+                work = [batch(np.random.default_rng(1000 + t * 7919 + i))
+                        for i in range(GROUP_CALLS + 10)]
+                for segs in work[:10]:  # warm-up
+                    fn(segs)
+                wall, cpu, res = [], [], []
+                go.wait()
+                for segs in work[10:]:
+                    t0, c0 = time.perf_counter(), time.thread_time()
+                    res.append(fn(segs))
+                    cpu.append(time.thread_time() - c0)
+                    wall.append(time.perf_counter() - t0)
+                out[t] = (wall, cpu, list(zip(work[10:], res)))
+
+            s0 = DV.SYNCS
+            ts = [threading.Thread(target=worker, args=(t,)) for t in range(threads)]
+            for th in ts:
+                th.start()
+            for th in ts:
+                th.join(timeout=600)
+            check(all(o is not None for o in out), f"{mode}, {threads} threads: a worker failed")
+            syncs = (DV.SYNCS - s0) / (threads * (GROUP_CALLS + 10))
+            for o in out:
+                for segs, res in o[2]:
+                    held(segs, *res, f"{mode}, {threads} threads")
+            wall = np.concatenate([o[0] for o in out]) * 1e6
+            cpu = np.concatenate([o[1] for o in out]) * 1e6
+            row = dict(mode=mode, threads=threads, syncs=syncs,
+                       wall_us=[float(np.percentile(wall, p)) for p in (50, 10, 90)],
+                       cpu_us=float(cpu.mean()))
+            rows.append(row)
+            log(f"[group] {card}: {GROUP_BATCH}-key get over {GROUP_PARTS} views, {mode}, "
+                f"{threads} thread(s) x {GROUP_CALLS}: wall {row['wall_us'][0]:.1f} us a batch "
+                f"[p10 {row['wall_us'][1]:.1f}, p90 {row['wall_us'][2]:.1f}], thread CPU "
+                f"{row['cpu_us']:.1f} us (mean), syncs a batch {syncs:.2f}")
+            check(syncs == (1 if mode == "grouped" else GROUP_PARTS),
+                  f"{mode}: {syncs} syncs a batch")
+    log(f"[group] {card}: " + json.dumps({"grouped_get": rows}))
+    return rows
+
+
 # ---------------------------------------------------------------- phase 5
 def build_index_partitions(rng, root: str):
     """Write each partition's tables (with CKBs) and its persisted REMIX
@@ -1627,23 +1745,25 @@ def _set_launch_counts(counts):
         f.launches = counts[k]
 
 
-# device-view get batches on the card since the last reset: every one ends
-# in one get_resolve launch (``count_view_gets``)
+# views of device-view get batches on the card since the last reset: each
+# view of a batch ends in one get_resolve launch (``count_view_gets``)
 VIEW_GETS = [0]
 _VIEW_GETS_LOCK = threading.Lock()
 
 
 def count_view_gets():
-    """Count each ``DeviceViewManager.get_batch`` on a view on the card into
-    ``VIEW_GETS``, from whichever thread the store calls it."""
+    """Count the views on the card of each ``DeviceViewManager.get_batch``
+    (one view, or a store batch's list of them) into ``VIEW_GETS``, from
+    whichever thread the store calls it."""
     from repro_torch.kernels import device_view as DV
 
     inner = DV.DeviceViewManager.get_batch
 
     def get_batch(self, dv, keys_u64, now):
-        if dv.remix.anchors.is_cuda:
-            with _VIEW_GETS_LOCK:
-                VIEW_GETS[0] += 1
+        views = [dv] if isinstance(dv, DV.DeviceView) else dv
+        n = sum(v.remix.anchors.is_cuda for v in views)
+        with _VIEW_GETS_LOCK:
+            VIEW_GETS[0] += n
         return inner(self, dv, keys_u64, now)
 
     DV.DeviceViewManager.get_batch = get_batch
@@ -1653,17 +1773,18 @@ def run_counted(tag, stage, fn, launches, require=True):
     """``fn()`` with the kernels' launch counts and ``VIEW_GETS`` set to 0
     just before it and read just after (before any kernel check launches
     more), added into ``launches``; fails if get_resolve's launches are
-    not the stage's device-view get batches, or if ``require`` and the
-    seek's two kernels never launched."""
+    not the views of the stage's device-view get batches, or if
+    ``require`` and the seek's two kernels never launched."""
     _set_launch_counts({k: 0 for k in _launch_counts()})
     VIEW_GETS[0] = 0
     out = fn()
     got, gets = _launch_counts(), VIEW_GETS[0]
-    log(f"[{tag}] {stage}: kernel launches {got}; device-view get batches {gets}")
+    log(f"[{tag}] {stage}: kernel launches {got}; views of device-view get batches {gets}")
     check(not require or all(got[k] > 0 for k in ("anchor_search", "selector_decode")),
           f"{stage}: a kernel never launched: {got}")
     check(got["get_resolve"] == gets,
-          f"{stage}: get_resolve launched {got['get_resolve']} times for {gets} get batches")
+          f"{stage}: get_resolve launched {got['get_resolve']} times for {gets} views of get "
+          "batches")
     for k, n in got.items():
         launches[k] += n
     return out
@@ -1692,8 +1813,9 @@ def _one_rule(rules) -> str | None:
 
 def _store_get(target, orc, keys, what):
     """One get_batch of a store or a fleet against the oracle, its syncs
-    held to ``_sync_rule`` over every shard it reaches; returns seconds,
-    syncs, touched partitions and the rule."""
+    held to ``_sync_rule`` over every shard it reaches (on the view path
+    one fetch a store reached, whatever its touched partitions); returns
+    seconds, syncs, touched partitions and the rule."""
     import torch
 
     per = [(db, _touched(db, k)) for db, k in _routed(target, keys)]
@@ -1711,10 +1833,11 @@ def _store_get(target, orc, keys, what):
     check(np.array_equal(found, f_o), f"{what}: found differs from the oracle")
     check(np.array_equal(vals[found], v_o[found]), f"{what}: values differ from the oracle")
     dev_batches = sum(_metric(db.registry, "device_batches") for db in stores) - b0
-    if rule == "view":
-        check(syncs["fetch"] == touched == dev_batches and syncs["other"] == 0,
+    if rule == "view":  # one round trip a store reached, a device batch a partition
+        reached = sum(1 for _, ps in per if ps)
+        check(syncs["fetch"] == reached and dev_batches == touched and syncs["other"] == 0,
               f"{what}: {syncs} syncs, {dev_batches} device batches for {touched} "
-              "touched partitions")
+              f"touched partitions in {reached} stores")
     if rule == "legacy":
         check(syncs["fetch"] == 0 and syncs["other"] == LEGACY_COPIES["get"] * touched,
               f"{what}: {syncs} syncs on the legacy path for {touched} touched partitions")
@@ -3981,6 +4104,7 @@ def main() -> int:
         timings = phase_timings(rng, views, domains, starts, err, card)
         phase_end_to_end(rng, mgr, views, domains, starts, card)
         resolve = phase_get_resolve(rng, card)
+        phase_grouped(rng, card)
         mark("phases 3-4")
         with tempfile.TemporaryDirectory() as root:
             idx_launches, idx_mgr, driven = phase_index_tier(rng, root, card)

@@ -9,7 +9,8 @@ Read path: MemTable overlay first, then the owning partition's REMIX
 (batched torch seek/get/scan on the store's device — no bloom filters, §4).
 Recovered partitions answer from the on-disk REMIX through the block cache
 (the host-only cold path) until their workload promotes them; promoted
-partitions answer from device views on the card (``device_path``).
+partitions answer from device views on the card (``device_path``), all of
+a batch's in one round trip.
 
 Versioned core: the store below the MemTable is a chain of immutable,
 refcounted :class:`~repro_torch.db.version.Version` objects. A flush builds new
@@ -1676,6 +1677,7 @@ class RemixDB:
                 rest = np.array(rest)
                 pidx = route_host([p.lo for p in parts], keys[rest])
                 routed = [(pi, rest[pidx == pi]) for pi in np.unique(pidx)]
+        views, picks = [], []  # the device-view partitions: one round trip for all
         for pi, sel in routed:
             p = parts[pi]
             if self._cold_ok(p):
@@ -1685,9 +1687,8 @@ class RemixDB:
                 continue
             dv = self._device_view(p)
             if dv is not None:
-                f, v = self.device_views.get_batch(dv, keys[sel], now)
-                found[sel] = f
-                vals[sel] = v
+                views.append(dv)
+                picks.append(sel)
                 continue
             remix, runset = p.index()
             kq = keys[sel]
@@ -1697,6 +1698,11 @@ class RemixDB:
             f, v = self._query_mod().get(remix, runset, qk, **self._qkw())
             found[sel] = f.cpu().numpy()[: len(sel)]
             vals[sel] = u32_np(v)[: len(sel)]
+        if views:
+            f, v = self.device_views.get_batch(views, [keys[s] for s in picks], now)
+            sel = np.concatenate(picks)
+            found[sel] = f
+            vals[sel] = v
         return found, vals
 
     def scan(self, start_key: int, n: int) -> tuple[np.ndarray, np.ndarray]:

@@ -40,17 +40,24 @@ release hook, from whichever thread unpins a Version. The reference has
 no lock, and two threads asking for the same partition there upload it
 twice and count its bytes twice.
 
+A store's batch of gets takes all of its partitions' views in one
+``get_batch``: one query upload, three launches a view, one packed result
+buffer, one copy and one wait. ``device_batches`` counts views,
+``device_view_fetches`` round trips.
+
 Host syncs are counted in the module-level ``SYNCS`` counter. Under an
 active trace each partition a batch touches records ``view.resolve``
-(the lock, the lookup, a ``view.upload`` on first touch), ``view.dispatch``
-(the query upload, the kernel composition, the pinned buffers and copies,
-all enqueued) and ``view.sync`` (the blocking wait on the copies).
+(the lock, the lookup, a ``view.upload`` on first touch); each round trip
+records ``view.dispatch`` (the query upload, the kernel compositions, the
+pinned buffer and copy, all enqueued; ``parts``: the views it serves) and
+``view.sync`` (the blocking wait on the copy).
 """
 from __future__ import annotations
 
 import dataclasses
 import threading
 from collections import OrderedDict
+from itertools import accumulate
 
 import numpy as np
 import torch
@@ -191,7 +198,8 @@ class DeviceViewManager:
         if events is None:
             events = NULL_EVENTS
         self.events = events
-        self._c_batches = registry.counter("device_batches")
+        self._c_batches = registry.counter("device_batches")  # one a view
+        self._c_fetches = registry.counter("device_view_fetches")  # one a round trip
         self._c_rows = registry.counter("device_rows_gathered")
         self._c_fallback = registry.counter("device_fallback_total")
         registry.gauge("hbm_resident_bytes", fn=lambda: self._resident)
@@ -271,39 +279,72 @@ class DeviceViewManager:
                 self._drop(self._views.pop(key), "clear")
 
     # ---- batched execution ----
-    def _queries(self, keys_u64: np.ndarray) -> torch.Tensor:
-        """(Q,) u64 keys → (pow2-padded Q, 2) int32 words on the device;
-        padded queries are key 0."""
-        kq = np.zeros(_pow2pad(len(keys_u64)), np.uint64)
-        kq[: len(keys_u64)] = keys_u64
+    def _queries(self, *keys_u64) -> torch.Tensor:
+        """(Q,) u64 key arrays → one (Σ pow2-padded Q, 2) int32 upload on the
+        device, each array's segment padded to a power of two with key 0."""
+        pads = [_pow2pad(len(k)) for k in keys_u64]
+        kq = np.zeros(sum(pads), np.uint64)
+        for k, a in zip(keys_u64, accumulate(pads, initial=0)):
+            kq[a: a + len(k)] = k
         return _upload(CK.pack_u64(kq).view(np.int32), self.device)
 
-    def get_batch(self, dv: DeviceView, keys_u64, now) -> tuple:
-        """Batched point gets: three launches and one result fetch, a
-        packed (found, run, row, values) row a query. Full tier: the fetch
-        carries the values. Index tier: it carries (found, run, row) and the
-        values come from the host block cache.
-        Returns (found (Q,) bool, vals (Q, VW) uint32)."""
-        keys_u64 = np.asarray(keys_u64, np.uint64)
-        q = len(keys_u64)
-        with tracing.span("view.dispatch"):
-            out = ops.get_live_packed(
-                dv.remix, dv.runset, dv.exp, self._queries(keys_u64), int(now)
-            )
-            host, ev = _enqueue_fetch(out)
-        self._c_batches.inc()
+    def get_batch(self, dv, keys_u64, now) -> tuple:
+        """Batched point gets on one view, or on a list of views with a list
+        of u64 key arrays, one a view: three launches a view and one result
+        fetch for them all. One query upload holds every view's queries;
+        each view's get_resolve writes a packed (found, run, row, values)
+        row a query into its slice of one int32 buffer, which one copy
+        fetches. Full tier: the rows carry the values. Index tier: they
+        carry (found, run, row) and the values come from the host block
+        cache, a view at a time after the one wait.
+        Returns (found (Q,) bool, vals (Q, VW) uint32), the views' queries
+        in order."""
+        views, keys = ([dv], [keys_u64]) if isinstance(dv, DeviceView) else (dv, keys_u64)
+        keys = [np.asarray(k, np.uint64) for k in keys]
+        if len(views) != len(keys):
+            raise ValueError(f"{len(views)} views for {len(keys)} key arrays")
+        one = len(views) == 1
+        pads = [_pow2pad(len(k)) for k in keys]
+        widths = [3 + v.runset.vals.shape[-1] for v in views]
+        rows = list(accumulate(pads, initial=0))
+        words = list(accumulate((p * w for p, w in zip(pads, widths)), initial=0))
+        with tracing.span("view.dispatch", parts=len(views)):
+            qd = self._queries(*keys)
+            buf = torch.empty((pads[0], widths[0]) if one else (words[-1],),
+                              dtype=torch.int32, device=self.device)
+            for i, v in enumerate(views):
+                ops.get_live_packed(
+                    v.remix, v.runset, v.exp, qd if one else qd[rows[i]: rows[i + 1]],
+                    int(now),
+                    out=buf if one else buf[words[i]: words[i + 1]].view(pads[i], widths[i]),
+                )
+            host, ev = _enqueue_fetch(buf)
+        self._c_batches.inc(len(views))
+        self._c_fetches.inc()
         (res,) = _fetch(host, ev)  # THE one host sync
-        res = res[:q]
-        found = res[:, 0] != 0
-        self._c_rows.inc(int(found.sum()))
-        if dv.tier == "full":
-            return found, res[:, 3:].view(np.uint32)
-        rid, row = res[:, 1], res[:, 2].astype(np.int64)
-        vals = np.zeros((q, dv.vw), np.uint32)
+        res = res.reshape(-1)
+        found, vals = [], []
+        for i, v in enumerate(views):
+            r = res[words[i]: words[i + 1]].reshape(pads[i], widths[i])[: len(keys[i])]
+            f = r[:, 0] != 0
+            found.append(f)
+            vals.append(r[:, 3:].view(np.uint32) if v.tier == "full"
+                        else self._host_vals(v, f, r[:, 1], r[:, 2]))
+        self._c_rows.inc(int(sum(f.sum() for f in found)))
+        if one:
+            return found[0], vals[0]
+        return np.concatenate(found), np.concatenate(vals)
+
+    @staticmethod
+    def _host_vals(dv: DeviceView, found, rid, row) -> np.ndarray:
+        """An index-tier view's values of the found rows, from its tables
+        through the block cache: one scattered fetch a touched table."""
+        row = row.astype(np.int64)
+        vals = np.zeros((len(found), dv.vw), np.uint32)
         for r in np.unique(rid[found]):
             m = found & (rid == r)
             vals[m] = dv.tables[r].rows_scattered("vals", row[m])
-        return found, vals
+        return vals
 
     def scan_windows(
         self, dv: DeviceView, starts_u64, width: int, now,

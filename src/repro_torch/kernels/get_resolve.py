@@ -67,8 +67,16 @@ def get_resolve_plain(queries, g, runid, absidx, newest, pad, keys, vals, tomb,
                       _at(vals, run, row)], dim=1)
 
 
+def _check_out(out, q: int, width: int, dev) -> None:
+    if (out.shape != (q, width) or out.dtype != torch.int32 or not out.is_contiguous()
+            or out.device != dev):
+        raise ValueError(f"out {tuple(out.shape)} {out.dtype} on {out.device}, contiguous "
+                         f"{out.is_contiguous()}: want ({q}, {width}) int32, contiguous, "
+                         "on the queries' device")
+
+
 def get_resolve(queries, g, runid, absidx, newest, pad, keys, vals, tomb, exp,
-                selectors, cursors, now: int) -> torch.Tensor:
+                selectors, cursors, now: int, out=None) -> torch.Tensor:
     """Resolve a batch of gets from the seek's decode → (Q, 3 + VW) int32:
     found (0/1), run, row (as the decode gives them, unclamped), then the
     slot's value words (for every query, found or not).
@@ -78,10 +86,15 @@ def get_resolve(queries, g, runid, absidx, newest, pad, keys, vals, tomb, exp,
     from ``selector_decode(selectors, cursors, rows=g)``; ``keys`` (R, N,
     KW), ``vals`` (R, N, VW), ``tomb`` (R, N) bool and ``exp`` (R, N) int32
     words of a view; ``selectors`` (G, D) uint8, ``cursors`` (G, RC) int32;
-    ``now`` the uint32 query-time clock."""
+    ``now`` the uint32 query-time clock. ``out``, where given, is the
+    contiguous (Q, 3 + VW) int32 tensor the rows are written into (a slice
+    of a larger buffer that one copy fetches); it is returned."""
+    if out is not None:
+        _check_out(out, queries.shape[0], 3 + vals.shape[-1], queries.device)
     if not queries.is_cuda:
-        return get_resolve_plain(queries, g, runid, absidx, newest, pad, keys, vals,
-                                 tomb, exp, selectors, cursors, now)
+        res = get_resolve_plain(queries, g, runid, absidx, newest, pad, keys, vals,
+                                tomb, exp, selectors, cursors, now)
+        return res if out is None else out.copy_(res)
     ts = (queries, g, runid, absidx, newest, pad, keys, vals, tomb, exp, selectors, cursors)
     dev = queries.device
     if any(t.device != dev or t.dtype != w or not t.is_contiguous() for t, w in zip(ts, _DTYPES)):
@@ -105,7 +118,8 @@ def get_resolve(queries, g, runid, absidx, newest, pad, keys, vals, tomb, exp,
                          "kernel's int32 indexing")
     if not 0 <= now < 2**32:
         raise ValueError(f"now={now}: want a uint32 clock")
-    out = torch.empty((q, 3 + vw), dtype=torch.int32, device=dev)
+    if out is None:
+        out = torch.empty((q, 3 + vw), dtype=torch.int32, device=dev)
     if q == 0:
         return out
     err = kernel_library().remix_get_resolve(

@@ -134,15 +134,17 @@ def scan_live(remix, runset, exp, queries, now: int, width: int):
     return (*gather_view_live(remix, runset, exp, pos, now, width), pos)
 
 
-def get_live_packed(remix, runset, exp, queries, now: int) -> torch.Tensor:
+def get_live_packed(remix, runset, exp, queries, now: int, out=None) -> torch.Tensor:
     """``get_live`` as one (Q, 3 + VW) int32 tensor: found, run, row, then
     the value words; three launches (anchor_search, selector_decode,
-    get_resolve), so that a caller fetches a batch with one copy."""
+    get_resolve), so that a caller fetches a batch with one copy. ``out``
+    is get_resolve's: the caller's slice of a buffer that holds several
+    views' rows, so that one copy fetches them all."""
     sel = remix.selectors.reshape(remix.g, remix.d)
     g = anchor_search(remix.anchors, queries)
     runid, absidx, newest, pad = selector_decode(sel, remix.cursors, rows=g)
     return get_resolve(queries, g, runid, absidx, newest, pad, runset.keys,
-                       runset.vals, runset.tomb, exp, sel, remix.cursors, now)
+                       runset.vals, runset.tomb, exp, sel, remix.cursors, now, out=out)
 
 
 def get_live(remix, runset, exp, queries, now: int):

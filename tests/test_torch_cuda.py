@@ -210,6 +210,67 @@ def test_get_batch_is_three_launches_and_one_sync(card):
     assert found.any() and not found.all()
 
 
+def _six_views(dev):
+    """A manager on ``dev`` and six VW-30 views (3 tables of 800 keys, D 32)
+    with their keys: one key, 8, 9, 16, 200 and 256 (power-of-two segments
+    and ones just past)."""
+    from repro_torch.kernels import device_view as DV
+
+    rng = np.random.default_rng(21)
+    domain = np.arange(1, 3000, dtype=np.uint64) * np.uint64(977)
+    mgr = DV.DeviceViewManager(1 << 30, device=dev)
+    views = [mgr.view_for(_ttl_partition(rng, domain, 30, 32, dev, n=800, runs=3))
+             for _ in range(6)]
+    keys = [domain[rng.integers(0, len(domain), n)] for n in (1, 8, 9, 16, 200, 256)]
+    return mgr, views, keys
+
+
+def test_grouped_get_is_one_sync_and_three_launches_a_view(card):
+    """Six views in one get_batch under the sync debug mode ``error``: one
+    result fetch, each kernel launched once a view; the answers of six
+    one-view calls and of the CPU, bit for bit."""
+    from repro_torch.kernels import device_view as DV
+
+    cpu_mgr, cpu_views, keys = _six_views("cpu")
+    want = cpu_mgr.get_batch(cpu_views, keys, 100)
+    mgr, views, _ = _six_views(card)
+    mgr.get_batch(views[0], keys[0], 100)  # builds the library
+    launches = lambda: (TA.anchor_search.launches, TS.selector_decode.launches,  # noqa: E731
+                        TG.get_resolve.launches)
+    n0, s0 = launches(), DV.SYNCS
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        found, vals = mgr.get_batch(views, keys, 100)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert tuple(b - a for a, b in zip(n0, launches())) == (6, 6, 6)
+    assert DV.SYNCS - s0 == 1
+    each = [mgr.get_batch(v, k, 100) for v, k in zip(views, keys)]
+    for got, one, cpu in zip((found, vals), zip(*each), want):
+        np.testing.assert_array_equal(got, np.concatenate(one))
+        np.testing.assert_array_equal(got, cpu)
+    assert found.any() and not found.all()
+
+
+def test_grouped_get_reads_the_same_kernel_work_on_card(card):
+    """The roofline readers' hooks (``perfbench.devtrace.KernelCalls``)
+    record the same (anchors, Q) pairs and decode shapes for six views in
+    one get_batch as for six one-view calls."""
+    from perfbench.devtrace import KernelCalls
+
+    mgr, views, keys = _six_views(card)
+    seen = []
+    for grouped in (True, False):
+        with KernelCalls() as kc:
+            if grouped:
+                mgr.get_batch(views, keys, 100)
+            else:
+                for v, k in zip(views, keys):
+                    mgr.get_batch(v, k, 100)
+        seen.append(([(id(a), q.shape[0]) for a, q in kc.anchor], kc.decode))
+    assert seen[0] == seen[1] and len(seen[0][0]) == 6
+
+
 def test_device_view_on_card_matches_cpu(card):
     """The same partition answered on the card (kernels) and on the CPU
     (plain versions), with one sync per batch on the card."""

@@ -1,5 +1,6 @@
 """The point-read path traced from inside: the spans under ``shardN:read``
-of a traced 256-get batch, on a multi-partition store and on a 2-shard
+of a traced 256-get batch (one device round trip for all of a store's
+partitions), on a multi-partition store and on a 2-shard
 ``KVServeEngine``, with the device views' plain path on the CPU
 (``device_path="on"``, ``device="cpu"``); each span's CPU time; the
 ``gc`` leaf of a collection inside an active trace.
@@ -55,11 +56,13 @@ def _touched(store, keys):
 
 def _check_read(read, n_parts):
     """``shardN:read``'s children in order: the keys, the overlay, one
-    resolve, dispatch and sync a partition touched, the results."""
-    names = [c.name for c in read.children if c.name != "gc"]
-    assert names == (["exec.keys", "store.overlay"]
-                     + ["view.resolve", "view.dispatch", "view.sync"] * n_parts
-                     + ["exec.results"]), names
+    resolve a partition touched, then one dispatch (its ``parts`` the
+    partitions touched) and one sync for all of them, the results."""
+    kids = [c for c in read.children if c.name != "gc"]
+    names = [c.name for c in kids]
+    assert names == (["exec.keys", "store.overlay"] + ["view.resolve"] * n_parts
+                     + ["view.dispatch", "view.sync", "exec.results"]), names
+    assert kids[-3].args["parts"] == n_parts
 
 
 def _check_clocks(tr):
@@ -96,7 +99,7 @@ def test_store_read_spans():
         s3 = device_view.SYNCS
         assert plain.trace is None
         assert _answers(first) == _answers(plain) == _answers(again)
-        assert s1 - s0 == s2 - s1 == s3 - s2 == len(touched)
+        assert s1 - s0 == s2 - s1 == s3 - s2 == 1  # one round trip a store batch
         for k, r in zip(q.tolist(), first.results):
             assert r.found and r.value.tolist() == [k & 0xFFFFFFFF, k >> 32]
 
@@ -139,7 +142,7 @@ def test_two_shard_engine_read_spans(tmp_path):
             (read,) = tr.find(f"shard{si}:read")
             _check_read(read, len(touched))
             total += len(touched)
-        assert s1 - s0 == total
+        assert s1 - s0 == len(eng.shards)  # one round trip a shard's batch
         assert len(_uploads(tr)) == total
     finally:
         eng.close()

@@ -196,7 +196,8 @@ def _histogram(x):
 # instruments a store registers when it runs device views: the port's twin
 # runs them where the reference's host path does not
 DEVICE_VIEW_METRICS = frozenset(
-    ("device_batches", "device_fallback_total", "device_rows_gathered", "hbm_resident_bytes"))
+    ("device_batches", "device_fallback_total", "device_rows_gathered", "device_view_fetches",
+     "hbm_resident_bytes"))
 
 
 def _metrics(a, b):
